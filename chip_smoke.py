@@ -1,0 +1,545 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's main path on one CUDA card and check it.
+
+    python3 chip_smoke.py
+
+Phases, in order; any failure raises and the script exits non-zero:
+
+1. Print the card's name and power limit; build the CUDA kernels from
+   ``src/repro_torch/kernels/csrc`` with ``nvcc`` for sm_90a.
+2. Kernel phase: each kernel against its plain PyTorch version on the
+   card at olmo-1b shapes (B=8, d 2048, 16 heads x 128, d_ff 8192,
+   Sk 584), every attention mask case; then CUDA-event times of the
+   kernel, the plain version and one PyTorch library call computing the
+   same function, with the L2 flushed before each timed call.
+3. Model step: full-width olmo-1b prefill + one decode step with and
+   without the kernels; logits finite and within ``LOGIT_ATOL``.
+4. Serve phase: ``repro_torch.launch.serve``'s engine at full width,
+   ``--requests 16 --prompt-len 512 --max-new 64 --max-batch 8``, with
+   and without ``--decode-kernels``, timed with nothing hooked in.
+   Launch counts are zeroed just before the kernel run and must equal
+   16 x its decode rounds.
+5. Teacher-forced check: both paths serve the requests again, untimed,
+   keeping every round's logits; the kernel run is fed the composed
+   run's tokens, so at every step of every request the two score the
+   same prefix, and their logits must agree within ``LOGIT_ATOL``.
+   Each step where the argmax differs is printed with its top-2 gap in
+   bf16 ulps.  The timed kernel run's tokens must equal the checked
+   run's up to and including their first divergence from the composed
+   stream, which ties the served tokens to the checked logits.
+6. Fault probes: the teacher-forced check once more with a fault put
+   into the kernel path's wiring (RoPE one position late; the current
+   token left out of attention); each must move the logits past
+   ``LOGIT_ATOL``, so the limit is shown to catch a faulty path.
+7. Profile: ``torch.profiler`` over the kernel path's first engine step;
+   device time per decode round by kernel, and the device's idle share.
+8. Print the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
+   line last.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+B, D, HQ, HKV, HD, FF, SK, VOCAB, LAYERS = 8, 2048, 16, 16, 128, 8192, 584, 50304, 16
+ATOL = RTOL = 2e-2          # bf16 kernel vs plain version, the JAX kernel tests' bar
+# Full-model logits, kernel vs composed path on the same tokens.  On an
+# H100 the 1008 teacher-forced steps of the serve phase differed by at
+# most 0.1445 (median 0.109); the two fault probes moved them by a median
+# of 0.48 and 2.08 (max 1.52 and 3.07).  The limit sits between.
+LOGIT_ATOL = 0.2
+REQUESTS, MAX_NEW = 16, 64
+SERVE_ARGV = ["--arch", "olmo-1b", "--requests", str(REQUESTS), "--prompt-len", "512",
+              "--max-new", str(MAX_NEW), "--max-batch", "8", "--seed", "0"]
+TIMED_CALLS = 30            # CUDA-event timings per kernel; the median is kept
+SOURCE = "src/repro_torch/kernels/csrc/decode.cu"
+REPLACES = {
+    "fused_qkv": "src/repro/kernels/decode.py:210",
+    "fused_decode_attention": "src/repro/kernels/decode.py:416",
+    "fused_mlp": "src/repro/kernels/decode.py:550",
+}
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def card_rates(name: str):
+    """(HBM bytes/s, dense bf16 FLOP/s) from the data sheets."""
+    if "PCIe" in name:
+        return 2.0e12, 756e12
+    if "NVL" in name:
+        return 3.9e12, 835e12
+    return 3.35e12, 989e12          # H100 SXM
+
+
+class Timer:
+    """Median CUDA-event time of one call, L2 flushed before each."""
+
+    def __init__(self, torch, iters: int):
+        self.torch = torch
+        self.iters = iters
+        self.flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+
+    def __call__(self, fn) -> float:
+        torch = self.torch
+        for _ in range(3):
+            fn()
+        times = []
+        for _ in range(self.iters):
+            self.flush.zero_()
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            fn()
+            e.record()
+            torch.cuda.synchronize()
+            times.append(s.elapsed_time(e))
+        return statistics.median(times)
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    if isinstance(tree, (tuple, list)):
+        return sum(tree_bytes(v) for v in tree)
+    return nbytes(tree)
+
+
+def kernel_phase(torch, timer, rates):
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode, ref
+
+    bw, peak = rates
+    g = torch.Generator(device="cuda").manual_seed(0)
+    bf = torch.bfloat16
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device="cuda") * scale).to(bf)
+
+    def close(got, want, what):
+        torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL, msg=lambda m: f"{what}: {m}")
+        torch.cuda.synchronize()
+        return (got.float() - want.float()).abs().max().item()
+
+    def bound(nb, flops):
+        t_bytes, t_ops = nb / bw * 1e3, flops / peak * 1e3
+        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+    rows = {}
+    x = rnd(B, D)
+
+    # --- fused_qkv ---------------------------------------------------------
+    wq, wk, wv = rnd(D, HQ * HD, scale=0.02), rnd(D, HKV * HD, scale=0.02), rnd(D, HKV * HD, scale=0.02)
+    bq, bk, bv = rnd(HQ * HD, scale=0.02), rnd(HKV * HD, scale=0.02), rnd(HKV * HD, scale=0.02)
+    pos = torch.randint(0, SK, (B,), generator=g, device="cuda", dtype=torch.int32)
+    kw = dict(n_heads=HQ, n_kv_heads=HKV, head_dim=HD, theta=1e4)
+    err = 0.0
+    for bias in (True, False):
+        for rope in (True, False):
+            bs = (bq, bk, bv) if bias else (None, None, None)
+            got = decode.fused_qkv(x, wq, wk, wv, *bs, pos, rope=rope, **kw)
+            want = ref.fused_qkv_ref(x, wq, wk, wv, *bs, pos, rope=rope, **kw)
+            for a, b_, n in zip(got, want, "qkv"):
+                err = max(err, close(a, b_, f"fused_qkv {n} bias={bias} rope={rope}"))
+    wqkv = torch.cat([wq, wk, wv], dim=1)
+
+    def qkv_library():
+        y = (x @ wqkv).reshape(B, HQ + 2 * HKV, HD)
+        ang = ref.rope_angles(pos, HD, 1e4)[:, None]
+        return ref.rotate_half_split(y[:, : HQ + HKV], torch.cos(ang), torch.sin(ang)), y[:, HQ + HKV:]
+
+    out_bytes = 2 * B * (HQ + 2 * HKV) * HD
+    t_bound, by = bound(nbytes(x, wq, wk, wv, pos) + out_bytes, 2 * B * D * (HQ + 2 * HKV) * HD)
+    rows["fused_qkv"] = dict(
+        max_abs_err=err,
+        ms=timer(lambda: decode.fused_qkv(x, wq, wk, wv, None, None, None, pos, **kw)),
+        plain_ms=timer(lambda: ref.fused_qkv_ref(x, wq, wk, wv, None, None, None, pos, **kw)),
+        library_ms=timer(qkv_library), bound_ms=t_bound, bound_by=by,
+    )
+
+    # --- fused_decode_attention ----------------------------------------------
+    q = rnd(B, HQ, HD)
+    k, v = rnd(B, SK, HKV, HD), rnd(B, SK, HKV, HD)
+    wo, bo = rnd(HQ * HD, D, scale=0.02), rnd(D, scale=0.02)
+    vlen = torch.tensor([520 + 8 * i for i in range(B)], dtype=torch.int32, device="cuda")
+    qpos = vlen - 1
+    ring = torch.randint(-1, SK + 40, (B, SK), generator=g, device="cuda", dtype=torch.int32)
+    cases = {
+        "full": dict(q_positions=torch.full((B,), SK - 1, dtype=torch.int32, device="cuda")),
+        "valid_len": dict(q_positions=qpos, kv_valid_len=vlen),
+        "window_static": dict(q_positions=qpos, kv_valid_len=vlen, window=97),
+        "window_dynamic": dict(q_positions=qpos, kv_valid_len=vlen,
+                               window_arr=torch.tensor(129, dtype=torch.int32, device="cuda")),
+        "ring_lane": dict(q_positions=qpos + 40, kv_positions=ring),
+        "ring_shared": dict(q_positions=qpos + 40, kv_positions=ring[0].contiguous()),
+        "ring_window": dict(q_positions=qpos + 40, kv_positions=ring,
+                            window_arr=torch.tensor(200, dtype=torch.int32, device="cuda")),
+        "noncausal": dict(q_positions=qpos, kv_valid_len=vlen, causal=False),
+    }
+    err = 0.0
+    for name, ckw in cases.items():
+        for bias in (bo, None):
+            got = decode.fused_decode_attention(q, k, v, wo, bias, **ckw)
+            want = ref.decode_attention_ref(q, k, v, wo, bias, **ckw)
+            err = max(err, close(got, want, f"fused_decode_attention {name} bias={bias is not None}"))
+    tkw = cases["valid_len"]
+    mask = ref.decode_mask(B, SK, q.device, **tkw)                     # (B, Sk)
+    used = int(mask.sum().item())                                        # slots this run needs
+    kv_bytes = 2 * used * HKV * HD * k.element_size()
+    att_flops = 4 * used * HQ * HD + 2 * B * HQ * HD * D
+    t_bound, by = bound(nbytes(q, wo, bo, vlen, qpos) + kv_bytes + 2 * B * D, att_flops)
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)                       # (B, H, Sk, hd)
+    sdpa_mask = mask[:, None, None, :]
+
+    def attn_library():
+        ctx = F.scaled_dot_product_attention(q[:, :, None], kt, vt, attn_mask=sdpa_mask)
+        return ctx.reshape(B, HQ * HD) @ wo + bo
+
+    rows["fused_decode_attention"] = dict(
+        max_abs_err=err,
+        ms=timer(lambda: decode.fused_decode_attention(q, k, v, wo, bo, **tkw)),
+        plain_ms=timer(lambda: ref.decode_attention_ref(q, k, v, wo, bo, **tkw)),
+        library_ms=timer(attn_library), bound_ms=t_bound, bound_by=by,
+    )
+
+    # --- fused_mlp -------------------------------------------------------------
+    wu, wg, wd = rnd(D, FF, scale=0.02), rnd(D, FF, scale=0.02), rnd(FF, D, scale=0.02)
+    bu, bd = rnd(FF, scale=0.02), rnd(D, scale=0.02)
+    err = 0.0
+    for act, gate, bias in (("swiglu", wg, True), ("swiglu", wg, False),
+                            ("gelu", None, True), ("sq_relu", None, False)):
+        bs = (bu, bd) if bias else (None, None)
+        got = decode.fused_mlp(x, wu, gate, bs[0], wd, bs[1], act=act)
+        want = ref.fused_mlp_ref(x, wu, gate, bs[0], wd, bs[1], act=act)
+        err = max(err, close(got, want, f"fused_mlp {act} bias={bias}"))
+    t_bound, by = bound(nbytes(x, wu, wg, wd) + 2 * B * D, 2 * B * D * FF * 3)
+    rows["fused_mlp"] = dict(
+        max_abs_err=err,
+        ms=timer(lambda: decode.fused_mlp(x, wu, wg, None, wd, None, act="swiglu")),
+        plain_ms=timer(lambda: ref.fused_mlp_ref(x, wu, wg, None, wd, None, act="swiglu")),
+        library_ms=timer(lambda: (F.silu(x @ wg) * (x @ wu)) @ wd),
+        bound_ms=t_bound, bound_by=by,
+    )
+    for name, r in rows.items():
+        print(f"[kernel] {name}: max_abs_err={r['max_abs_err']} kernel_ms={r['ms']} "
+              f"plain_ms={r['plain_ms']} library_ms={r['library_ms']} "
+              f"bound_ms={r['bound_ms']} ({r['bound_by']})", flush=True)
+    return rows
+
+
+def model_step_phase(torch):
+    """Full-width prefill + one decode step, kernels against composed."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+
+    cfg = get_config("olmo-1b")
+    params = transformer.init_params(cfg, 0, "cuda")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab, (2, 64), generator=g, device="cuda")
+    logits, pcache = transformer.prefill(cfg, params, tokens)
+    assert logits.shape == (2, cfg.vocab) and torch.isfinite(logits).all().item()
+    out = {}
+    for use in (False, True):
+        c = dataclasses.replace(cfg, decode_kernels=use)
+        # per-lane (B,) write positions, as serving passes, and a shared ()
+        for shared in (False, True):
+            cache = transformer.init_cache(c, 2, 128, "cuda")
+            for full, part in zip(cache, pcache):
+                full[:, :, :64] = part
+            step_tok = logits.argmax(-1).to(torch.int32)[:, None]
+            pos = torch.tensor(64, dtype=torch.int32, device="cuda")
+            out[use, shared], _ = transformer.decode_step(
+                c, params, cache, step_tok, pos if shared else pos.expand(2).clone()
+            )
+    torch.cuda.synchronize()
+    for lg in out.values():
+        assert lg.shape == (2, cfg.vocab) and torch.isfinite(lg).all().item()
+    for shared in (False, True):
+        diff = (out[True, shared] - out[False, shared]).abs().max().item()
+        print(f"[model] decode-step logits |kernel - composed| max {diff} "
+              f"({'shared' if shared else 'per-lane'} position; atol {LOGIT_ATOL})", flush=True)
+        assert diff <= LOGIT_ATOL, diff
+    del params
+
+
+def bf16_ulp(x: float) -> float:
+    return 2.0 ** (math.floor(math.log2(abs(x))) - 7) if x else 2.0 ** -133
+
+
+def serve_engine(serve, kernels: bool):
+    """The launcher's engine for the serve phase's requests, warmed up,
+    with the requests queued."""
+    args = serve.build_parser().parse_args(SERVE_ARGV + (["--decode-kernels"] if kernels else []))
+    engine = serve.make_engine(args)
+    engine.warmup()
+    serve.submit_requests(engine, args)
+    return engine
+
+
+def serve_phase(torch, rates):
+    """Timed runs of both paths, nothing hooked in: stats, launch counts
+    of the kernel path's run, and the greedy streams."""
+    from repro_torch.kernels import decode
+    from repro_torch.launch import serve
+
+    runs = {}
+    for kernels in (False, True):
+        engine = serve_engine(serve, kernels)
+        decode.reset_launches()                 # count the main path's run only
+        engine.run_until_drained()
+        torch.cuda.synchronize()
+        launches = {
+            "fused_qkv": decode.fused_qkv.launches,
+            "fused_decode_attention": decode.fused_decode_attention.launches,
+            "fused_mlp": decode.fused_mlp.launches,
+        }
+        st = engine.stats()
+        streams = {r.uid: r.out_tokens for r in engine.completed}
+        label = "kernels" if kernels else "composed"
+        print(f"[serve] {label}: tokens_per_s={st['tokens_per_s']} mean_ttft_s={st['mean_ttft_s']} "
+              f"mean_decode_round_s={st['mean_decode_round_s']} decode_rounds={st['decode_rounds']} "
+              f"launches={launches}", flush=True)
+        assert st["completed"] == REQUESTS and len(streams) == REQUESTS, st
+        assert all(len(s) == MAX_NEW and all(0 <= t < VOCAB for t in s) for s in streams.values())
+        want = LAYERS * engine.decode_rounds if kernels else 0
+        assert all(n == want for n in launches.values()), (launches, want)
+        assert not kernels or want > 0
+        if kernels:
+            # least time a round could take: every weight and the whole
+            # KV cache read once at the card's memory rate
+            wb, kvb = tree_bytes(engine.params), tree_bytes(engine._cache)
+            bound_s = (wb + kvb) / rates[0]
+            print(f"[serve] round bound {bound_s * 1e3} ms (weights {wb} B + KV cache {kvb} B "
+                  f"at {rates[0]} B/s); kernel-path round / bound = "
+                  f"{st['mean_decode_round_s'] / bound_s}", flush=True)
+        runs[label] = dict(streams=streams, launches=launches, round_s=st["mean_decode_round_s"])
+        del engine
+        torch.cuda.empty_cache()
+    same = sum(runs["kernels"]["streams"][u] == s for u, s in runs["composed"]["streams"].items())
+    print(f"[serve] greedy streams: {same}/{REQUESTS} identical between the paths", flush=True)
+    return runs
+
+
+def logged_run(torch, kernels: bool, feed=None):
+    """An untimed run of the serve phase's requests that keeps every
+    round's logits on the card.  With ``feed`` (uid -> stream) each
+    active lane is fed that stream's tokens in place of its own samples,
+    so the run scores exactly the prefixes ``feed`` scored (teacher
+    forcing); the run's own samples still land in its streams."""
+    from repro_torch.launch import serve
+
+    engine = serve_engine(serve, kernels)
+    inner, state, lanes = engine.api.decode_step, engine._state, engine._lanes
+    table = torch.zeros_like(state["out_buf"])
+    loaded = [None] * len(engine._slots)
+    rounds = []
+
+    def decode_step(cfg, params, cache, tokens, pos):
+        uids = [None if r is None else r.uid for r in engine._slots]
+        if feed is not None:
+            for lane, uid in enumerate(uids):
+                if uid is not None and loaded[lane] != uid:
+                    table[lane, :MAX_NEW] = torch.tensor(feed[uid], dtype=torch.int32)
+                    loaded[lane] = uid
+            col = (state["out_len"] - 1).clamp(min=0).long()
+            tokens = torch.where(state["active"][:, None], table[lanes, col][:, None], tokens)
+        logits, cache = inner(cfg, params, cache, tokens, pos)
+        rounds.append((uids, state["active"].clone(), state["out_len"].clone(), logits))
+        return logits, cache
+
+    engine.api = dataclasses.replace(engine.api, decode_step=decode_step)
+    engine.run_until_drained()
+    streams = {r.uid: r.out_tokens for r in engine.completed}
+    del engine
+    return streams, rounds
+
+
+def compare_rounds(torch, want_rounds, got_rounds):
+    """Per (request, step) of two runs that scored the same prefixes: the
+    largest |logit difference| over the vocabulary, and each step where
+    the argmax differs, with the first run's top-2 gap."""
+    assert len(want_rounds) == len(got_rounds), "the runs served different rounds"
+    diff, flip, gap, cross, top = [], [], [], [], []
+    keys = []
+    for (u1, a1, n1, l1), (u2, a2, n2, l2) in zip(want_rounds, got_rounds):
+        assert u1 == u2 and torch.equal(a1, a2) and torch.equal(n1, n2), "the runs diverged in schedule"
+        keys += [(u, step) for u, step, act in zip(u1, n1.tolist(), a1.tolist()) if act]
+        i1, i2 = l1.argmax(-1, keepdim=True), l2.argmax(-1, keepdim=True)
+        diff.append((l1 - l2).abs().amax(-1)[a1])
+        flip.append((i1 != i2)[:, 0][a1])
+        gap.append((l1.gather(1, i1) - l1.gather(1, i2))[:, 0][a1])
+        cross.append(torch.maximum((l1 - l2).abs().gather(1, i1), (l1 - l2).abs().gather(1, i2))[:, 0][a1])
+        top.append(l1.gather(1, i1)[:, 0][a1])
+    diff, flip, gap, cross, top = (torch.cat(t).tolist() for t in (diff, flip, gap, cross, top))
+    flips = [(k, g, g / bf16_ulp(t), c) for k, f, g, t, c in zip(keys, flip, gap, top, cross) if f]
+    return dict(zip(keys, diff)), flips
+
+
+def forced_phase(torch, runs):
+    """Hold the kernel path's logits to the composed path's at every step
+    of every request, on the same tokens, and tie the timed kernel run's
+    streams to those checked logits."""
+    want_streams, want_rounds = logged_run(torch, kernels=False)
+    assert want_streams == runs["composed"]["streams"], "the composed path is not deterministic"
+    got_streams, got_rounds = logged_run(torch, kernels=True, feed=want_streams)
+    diffs, flips = compare_rounds(torch, want_rounds, got_rounds)
+    assert len(diffs) == REQUESTS * (MAX_NEW - 1), len(diffs)
+    d = sorted(diffs.values())
+    print(f"[forced] {len(d)} (request, step) logit vectors, kernel vs composed on the same "
+          f"tokens: max |diff| {d[-1]}, median {statistics.median(d)}, "
+          f"p99 {d[int(0.99 * (len(d) - 1))]} (limit {LOGIT_ATOL})", flush=True)
+    for (uid, step), g, ulps, c in flips:
+        print(f"[forced] request {uid} step {step}: argmax differs; composed top-2 gap {g} "
+              f"= {ulps} bf16 ulp; the two tokens' logits differ between the paths by {c}",
+              flush=True)
+    print(f"[forced] argmax differs at {len(flips)} of {len(d)} steps", flush=True)
+    assert d[-1] <= LOGIT_ATOL, f"logits differ by {d[-1]} > {LOGIT_ATOL}"
+    # the timed kernel run scored the composed prefix up to its first
+    # divergence, so up to and including it its tokens are the checked ones
+    for uid, want in runs["composed"]["streams"].items():
+        served = runs["kernels"]["streams"][uid]
+        t = next((i for i, (a, b) in enumerate(zip(served, want)) if a != b), len(want) - 1)
+        assert served[: t + 1] == got_streams[uid][: t + 1], f"request {uid}: served tokens unchecked"
+    return want_streams, want_rounds
+
+
+def fault_phase(torch, want_streams, want_rounds):
+    """Run the teacher-forced comparison with a fault put into the kernel
+    path's wiring (not into the kernels, which the kernel phase holds):
+    each must move the logits past ``LOGIT_ATOL``, or the check is blind
+    to it."""
+    from repro_torch.kernels import dispatch
+
+    qkv, attn = dispatch.decode_qkv, dispatch.decode_attention
+
+    def rope_late(cfg, p, x, positions, *, rope):
+        return qkv(cfg, p, x, positions + 1, rope=rope)
+
+    def own_token_dropped(cfg, p, q, k, v, *, kv_valid_len, **kw):
+        return attn(cfg, p, q, k, v, kv_valid_len=kv_valid_len - 1, **kw)
+
+    for name, fn, patch in (("rope one position late", rope_late, "decode_qkv"),
+                            ("current token left out of attention", own_token_dropped,
+                             "decode_attention")):
+        setattr(dispatch, patch, fn)
+        try:
+            _, rounds = logged_run(torch, kernels=True, feed=want_streams)
+        finally:
+            dispatch.decode_qkv, dispatch.decode_attention = qkv, attn
+        diffs, flips = compare_rounds(torch, want_rounds, rounds)
+        d = sorted(diffs.values())
+        print(f"[fault] {name}: max |diff| {d[-1]}, median {statistics.median(d)}, "
+              f"argmax differs at {len(flips)} of {len(d)} steps (limit {LOGIT_ATOL})", flush=True)
+        assert d[-1] > LOGIT_ATOL, f"the teacher-forced check does not see the fault '{name}'"
+        del rounds
+        torch.cuda.empty_cache()
+
+
+def profile_phase(torch, round_s: float):
+    """torch.profiler over the kernel path's first engine step (the first
+    wave's prefill and a 32-round decode block): device time per round by
+    kernel, and the device's idle share inside the block."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.launch import serve
+
+    engine = serve_engine(serve, kernels=True)
+    inner = engine._decode_block_impl
+
+    def decode_block(params, cache, state, n_rounds):
+        with record_function("decode_block"):
+            out = inner(params, cache, state, n_rounds)
+            torch.cuda.synchronize()
+        return out
+
+    engine._decode_block_impl = decode_block
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        engine.step()
+    rounds = engine.decode_rounds
+    del engine
+    events = prof.events()
+    cuda = torch.autograd.DeviceType.CUDA
+    (w0, w1), = [(e.time_range.start, e.time_range.end) for e in events
+                 if e.name == "decode_block" and e.device_type != cuda]
+    # device activity inside the block; the block's own annotation is
+    # mirrored on the device timeline and is not work
+    dev = sorted((max(e.time_range.start, w0), min(e.time_range.end, w1), e.name)
+                 for e in events
+                 if e.device_type == cuda and e.name != "decode_block"
+                 and e.time_range.end > w0 and e.time_range.start < w1)
+    assert dev, "the profiler recorded no device activity in the decode block"
+    busy, end, by_name = 0.0, w0, {}
+    for s, e, name in dev:
+        busy += max(0.0, e - max(s, end))
+        end = max(end, e)
+        by_name[name] = by_name.get(name, 0.0) + (e - s)
+    window_ms, busy_ms = (w1 - w0) / 1e3 / rounds, busy / 1e3 / rounds
+    print(f"[profile] {rounds} rounds traced: block {window_ms} ms a round, device busy "
+          f"{busy_ms} ms a round, idle share {1 - busy_ms / window_ms} under the profiler; "
+          f"busy / unprofiled round ({round_s * 1e3} ms) = {busy_ms / (round_s * 1e3)}", flush=True)
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
+        print(f"[profile]   {us / 1e3 / rounds} ms a round  {name[:110]}", flush=True)
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(SRC))
+    from repro_torch.kernels import build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    print(f"[card] {card}", flush=True)
+    name = torch.cuda.get_device_name(0)
+    t0 = time.perf_counter()
+    lib = build.build()
+    print(f"[build] {lib.name} in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(build.library_path().with_suffix(".ptxas.txt").read_text()[-6000:], flush=True)
+
+    rows = kernel_phase(torch, Timer(torch, TIMED_CALLS), card_rates(name))
+    model_step_phase(torch)
+    torch.cuda.empty_cache()
+    runs = serve_phase(torch, card_rates(name))
+    want_streams, want_rounds = forced_phase(torch, runs)
+    fault_phase(torch, want_streams, want_rounds)
+    del want_rounds
+    torch.cuda.empty_cache()
+    profile_phase(torch, runs["kernels"]["round_s"])
+    launches = runs["kernels"]["launches"]
+    kernels = [
+        dict(name=n, route="cuda", source=SOURCE, replaces=REPLACES[n],
+             launches=launches[n], kernel_ms=r["ms"], **r)
+        for n, r in rows.items()
+    ]
+    print(card)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,289 @@
+"""The decode-path kernels: wrappers over ``csrc/decode.cu``.
+
+Counterparts of ``repro.kernels.decode``'s three Pallas kernels, with the
+same signatures and return shapes minus the TPU block sizes and
+``interpret``:
+
+- :func:`fused_qkv` -- QKV projections + bias + RoPE of one decode token.
+- :func:`fused_decode_attention` -- single-token GQA attention over the
+  whole KV cache, then ``ctx @ wo + bo``.
+- :func:`fused_mlp` -- the (gated) MLP.
+
+A CUDA tensor launches the kernel; a CPU tensor takes the plain version
+in :mod:`repro_torch.kernels.ref`.  A CUDA call that the kernel cannot
+take (dtype, shape, layout) raises: it never falls back.
+
+Each wrapper carries ``launches``, a plain integer that counts its calls
+that went to the kernel (one per call, though attention and MLP make two
+launches each); :func:`reset_launches` sets them to 0.
+"""
+from __future__ import annotations
+
+import functools
+from typing import Optional, Sequence
+
+import torch
+
+from repro_torch.kernels import ref
+from repro_torch.kernels.common import use_kernel
+
+_MAX_B = 8
+_ACT = {"swiglu": 0, "gelu": 1, "sq_relu": 2}
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def _check(name: str, t: torch.Tensor, shape: Sequence[int], device, dtype=torch.bfloat16):
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, the kernel takes {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def _check_opt(name, t, shape, device, dtype=torch.bfloat16):
+    if t is not None:
+        _check(name, t, shape, device, dtype)
+
+
+def _raise_on(err: int, name: str):
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def _stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def _lib():
+    from repro_torch.kernels import build
+
+    return build.load()
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _gemv_cols(n: int, device: torch.device) -> int:
+    """Output columns per GEMV block: the widest slab (longer contiguous
+    weight reads) that still gives every SM a block, else the narrowest."""
+    fits = [nc for nc in (32, 16, 8) if n % nc == 0]
+    if not fits:
+        raise ValueError(f"output width {n} is not a multiple of 8")
+    sms = _sm_count(device)
+    return next((nc for nc in fits if n // nc >= sms), fits[-1])
+
+
+def _check_batch(b: int, k: int):
+    if not 1 <= b <= _MAX_B:
+        raise ValueError(f"the decode kernels take 1..{_MAX_B} rows, got {b}")
+    if k % 8:
+        raise ValueError(f"reduction width {k} is not a multiple of 8")
+
+
+def fused_qkv(
+    x: torch.Tensor,                       # (B, d)
+    wq: torch.Tensor,                      # (d, Hq*hd)
+    wk: torch.Tensor,                      # (d, Hkv*hd)
+    wv: torch.Tensor,                      # (d, Hkv*hd)
+    bq: Optional[torch.Tensor] = None,     # (Hq*hd,)
+    bk: Optional[torch.Tensor] = None,
+    bv: Optional[torch.Tensor] = None,
+    positions: Optional[torch.Tensor] = None,   # (B,) int32 (rope only)
+    *,
+    n_heads: int,
+    n_kv_heads: int,
+    head_dim: int,
+    rope: bool = True,
+    theta: float = 1e4,
+):
+    """One decode token's QKV projections + bias + RoPE.
+
+    Returns ``(q (B, Hq, hd), k (B, Hkv, hd), v (B, Hkv, hd))`` in
+    ``x.dtype``."""
+    kw = dict(n_heads=n_heads, n_kv_heads=n_kv_heads, head_dim=head_dim,
+              rope=rope, theta=theta)
+    if not use_kernel(x):
+        if positions is None:
+            positions = torch.zeros(x.shape[0], dtype=torch.int32, device=x.device)
+        return ref.fused_qkv_ref(x, wq, wk, wv, bq, bk, bv, positions, **kw)
+    b, d = x.shape
+    dq, dkv = n_heads * head_dim, n_kv_heads * head_dim
+    dev = x.device
+    _check_batch(b, d)
+    if head_dim % 16 or head_dim > 256 or 256 % (head_dim // 8):
+        raise ValueError(f"head_dim {head_dim} is not supported by the kernel")
+    if (bq is None) != (bk is None) or (bq is None) != (bv is None):
+        raise ValueError("bq, bk and bv come together or not at all")
+    _check("x", x, (b, d), dev)
+    _check("wq", wq, (d, dq), dev)
+    _check("wk", wk, (d, dkv), dev)
+    _check("wv", wv, (d, dkv), dev)
+    _check_opt("bq", bq, (dq,), dev)
+    _check_opt("bk", bk, (dkv,), dev)
+    _check_opt("bv", bv, (dkv,), dev)
+    _check_opt("positions", positions, (b,), dev, torch.int32)
+    q = torch.empty((b, n_heads, head_dim), dtype=x.dtype, device=dev)
+    k = torch.empty((b, n_kv_heads, head_dim), dtype=x.dtype, device=dev)
+    v = torch.empty((b, n_kv_heads, head_dim), dtype=x.dtype, device=dev)
+    err = _lib().repro_fused_qkv(
+        x.data_ptr(), wq.data_ptr(), wk.data_ptr(), wv.data_ptr(),
+        _ptr(bq), _ptr(bk), _ptr(bv), _ptr(positions),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        b, d, n_heads, n_kv_heads, head_dim, int(rope), float(theta), _stream(),
+    )
+    _raise_on(err, "fused_qkv")
+    fused_qkv.launches += 1
+    return q, k, v
+
+
+def _int_vector(name, t, b, dev) -> tuple:
+    """(pointer, stride) of a () or (B,) int32 device tensor."""
+    if t.device != dev or t.dtype != torch.int32:
+        raise TypeError(f"{name} must be an int32 tensor on {dev}")
+    if t.dim() == 0:
+        return t.data_ptr(), 0
+    _check(name, t, (b,), dev, torch.int32)
+    return t.data_ptr(), 1
+
+
+def fused_decode_attention(
+    q: torch.Tensor,                       # (B, Hq, hd) post-rope, unscaled
+    k: torch.Tensor,                       # (B, Sk, Hkv, hd)
+    v: torch.Tensor,                       # (B, Sk, Hkv, hd)
+    wo: torch.Tensor,                      # (Hq*hd, d)
+    bo: Optional[torch.Tensor] = None,     # (d,)
+    *,
+    q_positions: torch.Tensor,             # (B,) int32 absolute query position
+    kv_valid_len: Optional[torch.Tensor] = None,   # () or (B,) int32
+    window: Optional[int] = None,                  # static sliding window
+    window_arr: Optional[torch.Tensor] = None,     # dynamic () int32 window
+    kv_positions: Optional[torch.Tensor] = None,   # (Sk,) or (B, Sk) ring slots
+    causal: bool = True,
+) -> torch.Tensor:
+    """Single-token GQA attention + output projection -> (B, d).
+
+    Mask semantics mirror ``models.attention._decode_attention``:
+    ``kv_positions`` (ring caches; negative = never written) else
+    ``arange < kv_valid_len``; causal row/window bounds on top."""
+    kw = dict(q_positions=q_positions, kv_valid_len=kv_valid_len, window=window,
+              window_arr=window_arr, kv_positions=kv_positions, causal=causal)
+    if not use_kernel(q):
+        return ref.decode_attention_ref(q, k, v, wo, bo, **kw)
+    b, hq, hd = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    d = wo.shape[1]
+    dev = q.device
+    _check_batch(b, hq * hd)
+    if hkv <= 0 or hq % hkv or hq // hkv not in (1, 2, 4, 8) or hd not in (32, 64, 128):
+        raise ValueError(f"(Hq={hq}, Hkv={hkv}, hd={hd}) is not supported by the kernel")
+    _check("q", q, (b, hq, hd), dev)
+    _check("k", k, (b, sk, hkv, hd), dev)
+    _check("v", v, (b, sk, hkv, hd), dev)
+    _check("wo", wo, (hq * hd, d), dev)
+    _check_opt("bo", bo, (d,), dev)
+    _check("q_positions", q_positions, (b,), dev, torch.int32)
+    kvp, kvp_stride = None, 0
+    if kv_positions is not None:
+        if kv_positions.dim() == 1:
+            _check("kv_positions", kv_positions, (sk,), dev, torch.int32)
+        else:
+            _check("kv_positions", kv_positions, (b, sk), dev, torch.int32)
+            kvp_stride = sk
+        kvp = kv_positions.data_ptr()
+    limit, limit_stride = None, 0
+    if kv_valid_len is not None:
+        limit, limit_stride = _int_vector("kv_valid_len", kv_valid_len, b, dev)
+    win_ptr, win_static = None, ref.BIG_WINDOW
+    if window_arr is not None:
+        if window_arr.dim() != 0:
+            raise ValueError("window_arr must be a () tensor")
+        win_ptr, _ = _int_vector("window_arr", window_arr, b, dev)
+    elif window is not None:
+        win_static = int(window)
+    scale = ref.dtype_scalar(1.0 / (hd ** 0.5), q.dtype)
+    ctx = torch.empty((b, hq * hd), dtype=q.dtype, device=dev)
+    y = torch.empty((b, d), dtype=q.dtype, device=dev)
+    lib, stream = _lib(), _stream()
+    err = lib.repro_decode_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), kvp, kvp_stride,
+        limit, limit_stride, q_positions.data_ptr(), win_ptr, win_static,
+        int(causal), scale, ctx.data_ptr(), b, sk, hq, hkv, hd, stream,
+    )
+    _raise_on(err, "fused_decode_attention (attention)")
+    err = lib.repro_gemv_bias(
+        ctx.data_ptr(), wo.data_ptr(), _ptr(bo), y.data_ptr(),
+        b, hq * hd, d, _gemv_cols(d, dev), stream,
+    )
+    _raise_on(err, "fused_decode_attention (output projection)")
+    fused_decode_attention.launches += 1
+    return y
+
+
+def fused_mlp(
+    x: torch.Tensor,                       # (B, d)
+    w_up: torch.Tensor,                    # (d, f)
+    w_gate: Optional[torch.Tensor] = None, # (d, f) -- presence selects gating
+    b_up: Optional[torch.Tensor] = None,   # (f,)
+    w_down: Optional[torch.Tensor] = None, # (f, d)
+    b_down: Optional[torch.Tensor] = None, # (d,)
+    *,
+    act: str = "swiglu",
+) -> torch.Tensor:
+    """up-proj -> activation -> down-proj, matching ``models.mlp.mlp_apply``."""
+    gated = w_gate is not None
+    if act == "swiglu" and not gated:
+        raise ValueError("swiglu requires w_gate")
+    if act not in _ACT:
+        raise ValueError(act)
+    if not use_kernel(x):
+        return ref.fused_mlp_ref(x, w_up, w_gate, b_up, w_down, b_down, act=act)
+    b, d = x.shape
+    f = w_up.shape[1]
+    dev = x.device
+    _check_batch(b, d)
+    if f % 8:
+        raise ValueError(f"d_ff {f} is not a multiple of 8")
+    if (b_up is None) != (b_down is None):
+        raise ValueError("b_up and b_down come together or not at all")
+    _check("x", x, (b, d), dev)
+    _check("w_up", w_up, (d, f), dev)
+    _check_opt("w_gate", w_gate, (d, f), dev)
+    _check_opt("b_up", b_up, (f,), dev)
+    _check("w_down", w_down, (f, d), dev)
+    _check_opt("b_down", b_down, (d,), dev)
+    h = torch.empty((b, f), dtype=x.dtype, device=dev)
+    y = torch.empty((b, d), dtype=x.dtype, device=dev)
+    lib, stream = _lib(), _stream()
+    err = lib.repro_mlp_up(
+        x.data_ptr(), _ptr(w_gate), w_up.data_ptr(), _ptr(b_up), h.data_ptr(),
+        b, d, f, _gemv_cols(f, dev), _ACT[act], int(gated), stream,
+    )
+    _raise_on(err, "fused_mlp (up)")
+    err = lib.repro_gemv_bias(
+        h.data_ptr(), w_down.data_ptr(), _ptr(b_down), y.data_ptr(),
+        b, f, d, _gemv_cols(d, dev), stream,
+    )
+    _raise_on(err, "fused_mlp (down)")
+    fused_mlp.launches += 1
+    return y
+
+
+KERNELS = (fused_qkv, fused_decode_attention, fused_mlp)
+for _fn in KERNELS:
+    _fn.launches = 0
+
+
+def reset_launches():
+    """Set every wrapper's launch count back to 0."""
+    for fn in KERNELS:
+        fn.launches = 0

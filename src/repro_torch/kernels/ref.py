@@ -1,0 +1,197 @@
+"""Plain PyTorch versions of the decode kernels (the oracles).
+
+Each mirrors ``repro.kernels.ref`` op for op, rounding points included:
+one rounding to the compute dtype per matrix product, then the bias, then
+RoPE in float32 on the rounded value; ``(q * scale)`` rounded to the
+compute dtype before the score product; the ``-1e30`` mask sentinel and
+``max(l, 1e-30)``.  A Python float multiplying a low-precision tensor in
+JAX is first rounded to that tensor's dtype (weak typing); torch keeps it
+in float32, so :func:`dtype_scalar` rounds it first.
+
+These run on the CPU path and, on the card, only as the comparison in
+``chip_smoke.py`` and the tests.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+NEG = -1e30
+BIG_WINDOW = 2 ** 31 - 1      # int32 max: "no window"
+
+
+def dtype_scalar(x: float, dt: torch.dtype) -> float:
+    """``x`` rounded to ``dt``, as JAX rounds a weak-typed Python scalar."""
+    return torch.tensor(x, dtype=dt).item()
+
+
+def rope_angles(positions: torch.Tensor, head_dim: int, theta: float) -> torch.Tensor:
+    """(...,) int positions -> (..., hd/2) float32 angles ``pos * freq``."""
+    freqs = 1.0 / (
+        theta ** (
+            torch.arange(0, head_dim, 2, dtype=torch.float32, device=positions.device)
+            / head_dim
+        )
+    )
+    return positions[..., None].to(torch.float32) * freqs
+
+
+def rotate_half_split(t: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """Half-split RoPE of ``t`` in float32, rounded back to ``t.dtype``."""
+    tf = t.to(torch.float32)
+    half = t.shape[-1] // 2
+    t1, t2 = tf[..., :half], tf[..., half:]
+    return torch.cat([t1 * cos - t2 * sin, t2 * cos + t1 * sin], dim=-1).to(t.dtype)
+
+
+def mlp_act(kind: str, gate: torch.Tensor, up: Optional[torch.Tensor]) -> torch.Tensor:
+    """swiglu: silu(gate) * up;  gelu (tanh form, as ``jax.nn.gelu``);
+    sq_relu: relu(gate) ** 2."""
+    if kind == "swiglu":
+        return F.silu(gate) * up
+    if kind == "gelu":
+        return F.gelu(gate, approximate="tanh")
+    if kind == "sq_relu":
+        r = F.relu(gate)
+        return r * r
+    raise ValueError(kind)
+
+
+def fused_qkv_ref(
+    x: torch.Tensor,                       # (B, d)
+    wq: torch.Tensor,
+    wk: torch.Tensor,
+    wv: torch.Tensor,
+    bq: Optional[torch.Tensor] = None,
+    bk: Optional[torch.Tensor] = None,
+    bv: Optional[torch.Tensor] = None,
+    positions: Optional[torch.Tensor] = None,
+    *,
+    n_heads: int,
+    n_kv_heads: int,
+    head_dim: int,
+    rope: bool = True,
+    theta: float = 1e4,
+):
+    """Oracle for :func:`decode.fused_qkv` (projection + bias + RoPE)."""
+    b = x.shape[0]
+    dt = x.dtype
+
+    def proj(w, bias, h):
+        y = x @ w.to(dt)
+        if bias is not None:
+            y = y + bias.to(dt)
+        return y.reshape(b, h, head_dim)
+
+    q = proj(wq, bq, n_heads)
+    k = proj(wk, bk, n_kv_heads)
+    v = proj(wv, bv, n_kv_heads)
+    if rope:
+        ang = rope_angles(positions, head_dim, theta)      # (B, hd/2)
+        cos = torch.cos(ang)[:, None, :]
+        sin = torch.sin(ang)[:, None, :]
+        q = rotate_half_split(q, cos, sin)
+        k = rotate_half_split(k, cos, sin)
+    return q, k, v
+
+
+def decode_mask(
+    b: int,
+    sk: int,
+    device: torch.device,
+    *,
+    q_positions: Optional[torch.Tensor],
+    kv_valid_len=None,
+    window: Optional[int] = None,
+    window_arr: Optional[torch.Tensor] = None,
+    kv_positions: Optional[torch.Tensor] = None,
+    causal: bool = True,
+) -> torch.Tensor:
+    """(B, Sk) bool: which cache slots a single-token query may attend.
+
+    Ring ``kv_positions`` (negative = never written), else
+    ``col < kv_valid_len``; causal ``col <= row`` and ``col > row - win``
+    on top.  Comparisons run in int64, so the int32-max default window
+    cannot overflow."""
+    if kv_positions is not None:
+        col = kv_positions.to(torch.int64).reshape(-1, sk).expand(b, sk)
+        valid = col >= 0
+    else:
+        col = torch.arange(sk, device=device, dtype=torch.int64)[None].expand(b, sk)
+        if kv_valid_len is None:
+            valid = torch.ones((b, sk), dtype=torch.bool, device=device)
+        else:
+            limit = torch.as_tensor(kv_valid_len, device=device).to(torch.int64)
+            valid = col < limit.reshape(-1, 1)
+    if causal:
+        row = q_positions.to(torch.int64).reshape(b, 1)
+        if window_arr is not None:
+            win = torch.as_tensor(window_arr, device=device).to(torch.int64)
+        else:
+            win = BIG_WINDOW if window is None else int(window)
+        valid = valid & (col <= row) & (col > row - win)
+    return valid
+
+
+def decode_attention_ref(
+    q: torch.Tensor,                       # (B, Hq, hd) post-rope, unscaled
+    k: torch.Tensor,                       # (B, Sk, Hkv, hd)
+    v: torch.Tensor,
+    wo: torch.Tensor,                      # (Hq*hd, d)
+    bo: Optional[torch.Tensor] = None,
+    *,
+    q_positions: torch.Tensor,
+    kv_valid_len=None,
+    window: Optional[int] = None,
+    window_arr: Optional[torch.Tensor] = None,
+    kv_positions: Optional[torch.Tensor] = None,
+    causal: bool = True,
+) -> torch.Tensor:
+    """Oracle for :func:`decode.fused_decode_attention` (attention + wo)."""
+    b, hq, hd = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    dt = q.dtype
+    scale = dtype_scalar(1.0 / (hd ** 0.5), dt)
+    qg = (q * scale).reshape(b, hkv, g, hd)
+    s = torch.einsum("bkgd,bskd->bkgs", qg.float(), k.float())
+    valid = decode_mask(
+        b, sk, q.device, q_positions=q_positions, kv_valid_len=kv_valid_len,
+        window=window, window_arr=window_arr, kv_positions=kv_positions,
+        causal=causal,
+    )
+    s = torch.where(valid[:, None, None, :], s, NEG)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    denom = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
+    ctx = torch.einsum(
+        "bkgs,bskd->bkgd", (p / denom).to(v.dtype).float(), v.float()
+    ).to(dt)
+    y = ctx.reshape(b, hq * hd) @ wo.to(dt)
+    if bo is not None:
+        y = y + bo.to(dt)
+    return y
+
+
+def fused_mlp_ref(
+    x: torch.Tensor,                       # (B, d)
+    w_up: torch.Tensor,
+    w_gate: Optional[torch.Tensor] = None,
+    b_up: Optional[torch.Tensor] = None,
+    w_down: Optional[torch.Tensor] = None,
+    b_down: Optional[torch.Tensor] = None,
+    *,
+    act: str = "swiglu",
+) -> torch.Tensor:
+    """Oracle for :func:`decode.fused_mlp` (mirrors ``models.mlp.mlp_apply``)."""
+    dt = x.dtype
+    g = x @ (w_gate if w_gate is not None else w_up).to(dt)
+    if b_up is not None:
+        g = g + b_up.to(dt)
+    up = x @ w_up.to(dt) if act == "swiglu" else None
+    y = mlp_act(act, g, up) @ w_down.to(dt)
+    if b_down is not None:
+        y = y + b_down.to(dt)
+    return y

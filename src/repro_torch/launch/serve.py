@@ -1,0 +1,99 @@
+"""Serving launcher of the port: batched requests against olmo-1b.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b \
+        [--smoke] [--decode-kernels] [--device cpu]
+
+Runs on the CUDA card unless ``--device cpu`` is given; without a card
+and without that flag it fails.  Weights are made from ``--seed`` by the
+port's own init.  ``--decode-kernels`` puts the hand-written CUDA decode
+kernels on the per-token hot path; the default composed PyTorch path is
+the A/B reference.  Prints a JSON stats blob.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+
+import numpy as np
+
+from repro_torch.configs import ARCH_IDS, get_config, smoke_variant
+from repro_torch.kernels.common import resolve_device
+from repro_torch.models import api as model_api
+from repro_torch.runtime.serving import ServeConfig, ServingEngine
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", choices=ARCH_IDS, required=True)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--max-batch", type=int, default=4)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--prefill-buckets", default=None, metavar="N,N,...",
+                    help="comma-separated prompt-length buckets for "
+                         "batched prefill (default: power-of-two ladder "
+                         "16,32,... capped at max_len)")
+    ap.add_argument("--decode-block", type=int, default=32, metavar="R",
+                    help="max decode rounds per host sync "
+                         "(power-of-two blocks up to R; default 32)")
+    ap.add_argument("--no-warmup", action="store_true",
+                    help="skip the warmup pass over the prefill-bucket/"
+                         "decode-block grid at startup")
+    ap.add_argument("--decode-kernels", action="store_true",
+                    help="hand-written CUDA decode kernels (QKV+RoPE, GQA "
+                         "attention + out-projection, gated MLP) on the "
+                         "per-token hot path")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu; cpu runs the plain "
+                         "PyTorch versions of the kernels")
+    return ap
+
+
+def make_engine(args) -> ServingEngine:
+    """Config, seeded weights and engine for parsed launcher arguments."""
+    device = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if args.smoke:
+        cfg = smoke_variant(cfg)
+    api = model_api.get_api(cfg)
+    params = api.init_params(cfg, args.seed, device)
+    serve_cfg = ServeConfig(
+        max_batch=args.max_batch,
+        max_len=args.prompt_len + args.max_new + 8,
+        max_new_tokens=args.max_new,
+        temperature=args.temperature,
+        seed=args.seed,
+        prefill_buckets=(
+            tuple(int(b) for b in args.prefill_buckets.split(","))
+            if args.prefill_buckets
+            else None
+        ),
+        max_decode_block=args.decode_block,
+        decode_kernels=args.decode_kernels,
+    )
+    return ServingEngine(cfg, params, serve_cfg, device)
+
+
+def submit_requests(engine: ServingEngine, args) -> None:
+    rng = np.random.default_rng(args.seed)
+    for _ in range(args.requests):
+        prompt = rng.integers(0, engine.cfg.vocab, size=args.prompt_len).astype(np.int32)
+        engine.submit(prompt)
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    engine = make_engine(args)
+    if not args.no_warmup:
+        engine.warmup()
+    submit_requests(engine, args)
+    engine.run_until_drained()
+    print(json.dumps(engine.stats(), indent=1, default=float))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,357 @@
+"""Decoder-only transformer LM, dense (counterpart of
+``repro.models.transformer``).
+
+Parameters keep the JAX package's layout: ``(in, out)`` weight matrices
+and the layers stacked on axis 0 of each leaf, so converted reference
+parameters and the port's own seeded init are interchangeable.
+
+Unlike the reference, the decode path updates the KV cache *in place*:
+the cache tensors given to :func:`decode_step` / :func:`decode_stage` are
+written and returned, so the serving engine's preallocated buffers are
+never copied.  Callers that need the old cache clone it first.
+
+The config flags this slice does not cover raise ``NotImplementedError``
+naming the ROADMAP step that ports them (:func:`check_supported`).
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import dispatch as kdispatch
+from repro_torch.kernels.common import resolve_device
+from repro_torch.kernels.ref import BIG_WINDOW
+from repro_torch.models import attention as attn
+from repro_torch.models import mlp as mlp_mod
+from repro_torch.models.common import apply_norm, apply_rope, mlp_is_gated
+
+# (condition, what, ROADMAP queue 1 step that ports it)
+_LATER = (
+    (lambda c: c.family in ("ssm", "hybrid", "encdec"), "the {family} family", 12),
+    (lambda c: c.family == "vlm", "vlm patch embeddings", 9),
+    (lambda c: c.is_moe, "mixture-of-experts MLPs", 12),
+    (lambda c: c.kv_quant, "kv_quant", 9),
+    (lambda c: c.kv_ring, "kv_ring", 9),
+    (lambda c: bool(c.window or c.global_every), "window/global_every attention", 9),
+    (lambda c: c.pos_embed != "rope", "{pos_embed} positions", 9),
+)
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise for config flags that later slices of the port cover."""
+    for cond, what, step in _LATER:
+        if cond(cfg):
+            raise NotImplementedError(
+                f"{what.format(family=cfg.family, pos_embed=cfg.pos_embed)} "
+                f"is not ported yet (ROADMAP queue 1, step {step})"
+            )
+
+
+def _dtype(cfg) -> torch.dtype:
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+# ------------------------------------------------------------- params -----
+
+
+def _norm_params(cfg, shape, device):
+    if cfg.norm == "rmsnorm":
+        return {"scale": torch.zeros(shape, dtype=torch.float32, device=device)}
+    if cfg.norm == "layernorm":
+        return {
+            "scale": torch.ones(shape, dtype=torch.float32, device=device),
+            "bias": torch.zeros(shape, dtype=torch.float32, device=device),
+        }
+    if cfg.norm == "nonparam_ln":
+        return None
+    raise ValueError(cfg.norm)
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
+    """Seeded init: normal(0.02) weights from a ``torch.Generator`` on the
+    device, stored in ``cfg.dtype``; zero biases, reference norm params.
+    Shapes are the reference's (``transformer.init_params``).  The numbers
+    differ from ``jax.random``'s: tests convert reference parameters with
+    ``repro_torch.interop`` instead."""
+    check_supported(cfg)
+    device = resolve_device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    dt = _dtype(cfg)
+    L, d, f, hd = cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.head_dim
+    dq, dkv = cfg.n_heads * hd, cfg.n_kv_heads * hd
+
+    def normal(*shape):
+        w = torch.empty(shape, dtype=torch.float32, device=device)
+        return w.normal_(0.0, 0.02, generator=gen).to(dt)
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=torch.float32, device=device)
+
+    a = {"wq": normal(L, d, dq), "wk": normal(L, d, dkv),
+         "wv": normal(L, d, dkv), "wo": normal(L, dq, d)}
+    if cfg.attn_bias:
+        a.update(bq=zeros(L, dq), bk=zeros(L, dkv), bv=zeros(L, dkv), bo=zeros(L, d))
+    m = {"w_up": normal(L, d, f), "w_down": normal(L, f, d)}
+    if mlp_is_gated(cfg.mlp):
+        m["w_gate"] = normal(L, d, f)
+    if cfg.mlp_bias:
+        m.update(b_up=zeros(L, f), b_down=zeros(L, d))
+    layers = {
+        "attn_norm": _norm_params(cfg, (L, d), device),
+        "attn": a,
+        "mlp_norm": _norm_params(cfg, (L, d), device),
+        "mlp": m,
+    }
+    params = {
+        "embed": normal(cfg.vocab, d),
+        "final_norm": _norm_params(cfg, (d,), device),
+        "layers": {k: v for k, v in layers.items() if v is not None},
+    }
+    if not cfg.tie_embeddings:
+        params["unembed"] = normal(d, cfg.vocab)
+    return {k: v for k, v in params.items() if v is not None}
+
+
+def _params_device(params: dict) -> torch.device:
+    return params["embed"].device
+
+
+def layer_windows(cfg: ModelConfig, device=None) -> torch.Tensor:
+    """Per-layer effective attention window (int32, one per layer)."""
+    return torch.full((cfg.n_layers,), BIG_WINDOW, dtype=torch.int32, device=device)
+
+
+def _layer_slice(tree, i):
+    """Layer ``i`` of a stacked params/cache tree (views, no copies)."""
+    if isinstance(tree, dict):
+        return {k: _layer_slice(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+# ------------------------------------------------------------- forward ----
+
+
+def _layer_fn(
+    cfg: ModelConfig,
+    x: torch.Tensor,                 # (B, S, D)
+    lp: dict,
+    window: torch.Tensor,            # () int32
+    positions: torch.Tensor,         # (B, S)
+    cache_kv: Optional[Tuple[torch.Tensor, torch.Tensor]],  # (B, Smax, KV, hd) x2
+    decode_pos: Optional[torch.Tensor],                     # () or (B,) int32
+    return_kv: bool,
+):
+    dt = x.dtype
+    # the decode kernels take the single-token hot path when
+    # cfg.decode_kernels is set; the cache write stays plain torch
+    use_kernels = kdispatch.attention_active(cfg, x) and cache_kv is not None
+    h = apply_norm(cfg, x, lp.get("attn_norm"))
+    if use_kernels:
+        q, k, v = kdispatch.decode_qkv(cfg, lp["attn"], h, positions, rope=True)
+    else:
+        q, k, v = attn.project_qkv(cfg, lp["attn"], h)
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+
+    new_cache = None
+    if cache_kv is not None:
+        ck, cv = cache_kv
+        if decode_pos.dim() > 0:
+            # one-token decode: each lane writes its row at its own position
+            lanes = torch.arange(ck.shape[0], device=ck.device)
+            ck[lanes, decode_pos] = k[:, 0].to(ck.dtype)
+            cv[lanes, decode_pos] = v[:, 0].to(cv.dtype)
+        else:
+            idx = decode_pos + torch.arange(x.shape[1], device=ck.device)
+            ck.index_copy_(1, idx, k.to(ck.dtype))
+            cv.index_copy_(1, idx, v.to(cv.dtype))
+        new_cache = (ck, cv)
+        k_att, v_att = ck, cv
+        valid = decode_pos + x.shape[1]
+    else:
+        k_att, v_att = k, v
+        valid = None
+
+    if use_kernels:
+        x = x + kdispatch.decode_attention(
+            cfg, lp["attn"], q, k_att.to(dt), v_att.to(dt),
+            q_positions=positions,
+            kv_valid_len=valid,
+            window_arr=window,
+        )
+    else:
+        ctx = attn.gqa_attention(
+            q, k_att.to(dt), v_att.to(dt),
+            q_positions=positions,
+            kv_valid_len=valid,
+            causal=True,
+            window_arr=window,
+            chunk=cfg.attn_chunk,
+        )
+        x = x + attn.project_out(cfg, lp["attn"], ctx)
+
+    h2 = apply_norm(cfg, x, lp.get("mlp_norm"))
+    if kdispatch.mlp_active(cfg, h2):
+        y = kdispatch.decode_mlp(cfg, lp["mlp"], h2)
+    else:
+        y = mlp_mod.mlp_apply(cfg, lp["mlp"], h2)
+    x = x + y
+    return x, new_cache, ((k, v) if return_kv else None)
+
+
+def _embed(cfg, params, tokens):
+    return params["embed"].to(_dtype(cfg))[tokens]
+
+
+def forward_hidden(
+    cfg: ModelConfig,
+    params: dict,
+    tokens: torch.Tensor,            # (B, S)
+    return_cache: bool = False,
+):
+    """Full-sequence pass -> (hidden (B,S,D), optional kv cache (L,B,S,KV,hd) x2)."""
+    check_supported(cfg)
+    b, s = tokens.shape
+    dev = tokens.device
+    positions = torch.arange(s, dtype=torch.int32, device=dev)[None].expand(b, s)
+    x = _embed(cfg, params, tokens)
+    windows = layer_windows(cfg, dev)
+    ks, vs = [], []
+    for i in range(cfg.n_layers):
+        x, _, kv = _layer_fn(
+            cfg, x, _layer_slice(params["layers"], i), windows[i], positions,
+            None, None, return_kv=return_cache,
+        )
+        if return_cache:
+            ks.append(kv[0])
+            vs.append(kv[1])
+    x = apply_norm(cfg, x, params.get("final_norm"))
+    cache = (torch.stack(ks), torch.stack(vs)) if return_cache else None
+    return x, cache
+
+
+def _unembed_matrix(cfg, params):
+    if cfg.tie_embeddings:
+        return params["embed"].T
+    return params["unembed"]
+
+
+def logits_last(cfg: ModelConfig, params: dict, hidden: torch.Tensor) -> torch.Tensor:
+    """(B, S, D) -> logits of the final position (B, V), float32."""
+    h_last = hidden[:, -1]
+    return (h_last @ _unembed_matrix(cfg, params).to(hidden.dtype)).float()
+
+
+def prefill(
+    cfg: ModelConfig,
+    params: dict,
+    tokens: torch.Tensor,
+    lengths: Optional[torch.Tensor] = None,
+):
+    """Full-context pass -> (last-token logits (B,V), kv cache (L,B,S,KV,hd) x2).
+
+    ``lengths`` (B,) enables bucketed batched prefill: rows are prompts
+    right-padded to a shared bucket length, and logits are gathered at
+    each row's last real token.  The cache keeps the padded tail; causal
+    masking hides it and decode overwrites it before it becomes visible."""
+    hidden, cache = forward_hidden(cfg, params, tokens, return_cache=True)
+    if lengths is not None:
+        b = tokens.shape[0]
+        lanes = torch.arange(b, device=tokens.device)
+        h_last = hidden[lanes, lengths.to(torch.int64) - 1]
+        logits = (h_last @ _unembed_matrix(cfg, params).to(hidden.dtype)).float()
+        return logits, cache
+    return logits_last(cfg, params, hidden), cache
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
+    check_supported(cfg)
+    device = resolve_device(device)
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return (
+        torch.zeros(shape, dtype=_dtype(cfg), device=device),
+        torch.zeros(shape, dtype=_dtype(cfg), device=device),
+    )
+
+
+# -------------------------------------------------- layer-sliced decode ---
+
+
+def _decode_positions(pos: torch.Tensor, b: int):
+    """Normalise pos to (int32 pos, (B, 1) positions) for one-token decode."""
+    pos = pos.to(torch.int32)
+    positions = pos.expand(b)[:, None] if pos.dim() == 0 else pos[:, None]
+    return pos, positions
+
+
+def decode_slice_points(cfg: ModelConfig) -> Tuple[int, ...]:
+    """Layer indices where a stage boundary may fall (every layer)."""
+    return tuple(range(cfg.n_layers + 1))
+
+
+def slice_params(cfg: ModelConfig, params: dict, layer_range) -> dict:
+    """Stage-local decode params for layers [start, stop) (views)."""
+    start, stop = layer_range
+
+    def cut(tree):
+        if isinstance(tree, dict):
+            return {k: cut(v) for k, v in tree.items()}
+        return tree[start:stop]
+
+    return {
+        "layers": cut(params["layers"]),
+        "windows": layer_windows(cfg, _params_device(params))[start:stop],
+    }
+
+
+def slice_cache(cfg: ModelConfig, cache, layer_range):
+    """Stage-local KV cache lanes for layers [start, stop) (views)."""
+    start, stop = layer_range
+    return tuple(a[start:stop] for a in cache)
+
+
+def decode_embed(cfg: ModelConfig, params: dict, tokens: torch.Tensor, pos: torch.Tensor):
+    """Token -> hidden (B, 1, D)."""
+    return _embed(cfg, params, tokens)
+
+
+def decode_stage(
+    cfg: ModelConfig,
+    stage_params: dict,
+    hidden: torch.Tensor,            # (B, 1, D)
+    stage_cache,
+    pos: torch.Tensor,               # () or (B,) int32 -- write position
+):
+    """One token step through a contiguous layer slice -> (hidden, cache).
+    The cache is updated in place and returned."""
+    n = stage_params["windows"].shape[0]
+    pos, positions = _decode_positions(pos, hidden.shape[0])
+    x = hidden
+    for i in range(n):
+        x, _, _ = _layer_fn(
+            cfg, x, _layer_slice(stage_params["layers"], i),
+            stage_params["windows"][i], positions,
+            tuple(c[i] for c in stage_cache), pos, return_kv=False,
+        )
+    return x, stage_cache
+
+
+def decode_unembed(cfg: ModelConfig, params: dict, hidden: torch.Tensor) -> torch.Tensor:
+    """hidden (B, 1, D) -> logits (B, V)."""
+    x = apply_norm(cfg, hidden, params.get("final_norm"))
+    return logits_last(cfg, params, x)
+
+
+def decode_step(cfg: ModelConfig, params: dict, cache, tokens: torch.Tensor, pos: torch.Tensor):
+    """One token step against a KV cache -> (logits (B,V), cache).
+
+    The one-stage composition of the sliced entry points; the cache is
+    updated in place."""
+    check_supported(cfg)
+    x = decode_embed(cfg, params, tokens, pos)
+    x, cache = decode_stage(
+        cfg, slice_params(cfg, params, (0, cfg.n_layers)), x, cache, pos
+    )
+    return decode_unembed(cfg, params, x), cache

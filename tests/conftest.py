@@ -26,3 +26,4 @@ def key():
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: long-running integration test")
+    config.addinivalue_line("markers", "cuda: needs a CUDA card; skips without one")
