@@ -6,12 +6,31 @@
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. Print the card's name and power limit; build the CUDA kernels from
-   ``src/repro_torch/kernels/csrc`` with ``nvcc`` for sm_90a.
-2. Kernel phase: each kernel against its plain PyTorch version on the
-   card at olmo-1b shapes (B=8, d 2048, 16 heads x 128, d_ff 8192,
+   ``src/repro_torch/kernels/csrc`` with ``nvcc`` for sm_90a, one
+   ``nvcc`` per source, all started together.
+2. Kernel phase: each decode kernel against its plain PyTorch version on
+   the card at olmo-1b shapes (B=8, d 2048, 16 heads x 128, d_ff 8192,
    Sk 584), every attention mask case; then CUDA-event times of the
    kernel, the plain version and one PyTorch library call computing the
    same function, with the L2 flushed before each timed call.
+2a. PU kernel phase, on a seeded full-width ResNet-50 (224x224x3 int8
+   image): ``int8_gemm`` and ``im2col`` against their plain versions bit
+   for bit at the operands of every call of one forward (53 GEMMs, 17
+   im2col; im2col also in bf16 and float32), plus the GEMM epilogue
+   cases (bias on/off, shift -3/0/7/16, ReLU, residual);
+   ``niu_refresh`` on every weight matrix with three seeds, |diff| <= 1
+   on at most ``NIU_MAX_RATE`` of the elements.  Times of kernel, plain
+   version and library yardstick (``torch._int_mm`` + the epilogue in
+   torch ops; the ``unfold`` chain; none for the NIU's RNG), each
+   distinct call timed cold and summed over one forward (one NIU round).
+2b. ResNet phase: launch counts zeroed just before one forward and read
+   just after (53 GEMMs, 17 im2col); the int8 trunk equal bit for bit
+   to the CPU's plain forward on the same weights, logits within
+   ``RESNET_RTOL`` / ``RESNET_ATOL`` with the same top-5; the float
+   reference correlating above 0.7; median ms per image over
+   ``FORWARDS`` forwards; a torch.profiler trace of one forward (device
+   busy, idle share, top device ops); one NIU round over every weight
+   matrix, its launches counted.
 3. Model step: full-width olmo-1b prefill + one decode step with and
    without the kernels; logits finite and within ``LOGIT_ATOL``.
 4. Serve phase: ``repro_torch.launch.serve``'s engine at full width,
@@ -61,12 +80,35 @@ REQUESTS, MAX_NEW = 16, 64
 SERVE_ARGV = ["--arch", "olmo-1b", "--requests", str(REQUESTS), "--prompt-len", "512",
               "--max-new", str(MAX_NEW), "--max-batch", "8", "--seed", "0"]
 TIMED_CALLS = 30            # CUDA-event timings per kernel; the median is kept
-SOURCE = "src/repro_torch/kernels/csrc/decode.cu"
+SOURCES = {
+    "fused_qkv": "src/repro_torch/kernels/csrc/decode.cu",
+    "fused_decode_attention": "src/repro_torch/kernels/csrc/decode.cu",
+    "fused_mlp": "src/repro_torch/kernels/csrc/decode.cu",
+    "int8_gemm": "src/repro_torch/kernels/csrc/pu.cu",
+    "im2col": "src/repro_torch/kernels/csrc/pu.cu",
+    "niu_refresh": "src/repro_torch/kernels/csrc/niu.cu",
+}
 REPLACES = {
     "fused_qkv": "src/repro/kernels/decode.py:210",
     "fused_decode_attention": "src/repro/kernels/decode.py:416",
     "fused_mlp": "src/repro/kernels/decode.py:550",
+    "int8_gemm": "src/repro/kernels/int8_gemm.py:147",
+    "im2col": "src/repro/kernels/im2col.py:65",
+    "niu_refresh": "src/repro/kernels/niu.py:132",
 }
+# The paper's INT8 ResNet-50 at full width: 224x224x3 int8 image, 1000
+# classes, seeded weights; 53 convolutions, 17 of them through im2col.
+RESNET, IMAGE, N_GEMM, N_IM2COL = 50, 224, 53, 17
+FORWARDS = 30               # timed forwards; the median is kept
+NIU_SEEDS = (0, 12345, -987654321)
+NIU_MAX_RATE = 1e-4         # NIU kernel vs plain: |diff| <= 1 on at most this share
+NIU_OPS = 43                # float32 operations per element (two Gaussians + the noise model)
+# ResNet-50 logits, card against the CPU (same torch code, plain versions
+# on the CPU): the int8 trunk is equal bit for bit, the float32 fc product
+# differs only in summation order.  On an H100 the logits (|logit| up to
+# 2.9e5, whose float32 ulp is 0.031) differed by at most 0.0742, i.e.
+# 2.4 ulp; the limit allows 8 ulp.
+RESNET_RTOL, RESNET_ATOL = 1e-5, 0.25
 
 
 def card_line() -> str:
@@ -77,13 +119,20 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def card_rates(name: str):
-    """(HBM bytes/s, dense bf16 FLOP/s) from the data sheets."""
+def card_rates(name: str) -> dict:
+    """HBM bytes/s and dense peak operations/s by type, from the data sheets."""
     if "PCIe" in name:
-        return 2.0e12, 756e12
+        return dict(bytes=2.0e12, bf16=756e12, int8=1513e12, f32=51e12)
     if "NVL" in name:
-        return 3.9e12, 835e12
-    return 3.35e12, 989e12          # H100 SXM
+        return dict(bytes=3.9e12, bf16=835e12, int8=1671e12, f32=60e12)
+    return dict(bytes=3.35e12, bf16=989e12, int8=1979e12, f32=67e12)     # H100 SXM
+
+
+def bound(rates: dict, nb: float, ops: float = 0.0, kind: str = "bf16"):
+    """(ms, what bounds it): the larger of the bytes over the memory rate
+    and the operations over the peak rate of their type."""
+    t_bytes, t_ops = nb / rates["bytes"] * 1e3, ops / rates[kind] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 class Timer:
@@ -128,7 +177,6 @@ def kernel_phase(torch, timer, rates):
 
     from repro_torch.kernels import decode, ref
 
-    bw, peak = rates
     g = torch.Generator(device="cuda").manual_seed(0)
     bf = torch.bfloat16
 
@@ -139,10 +187,6 @@ def kernel_phase(torch, timer, rates):
         torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL, msg=lambda m: f"{what}: {m}")
         torch.cuda.synchronize()
         return (got.float() - want.float()).abs().max().item()
-
-    def bound(nb, flops):
-        t_bytes, t_ops = nb / bw * 1e3, flops / peak * 1e3
-        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
     rows = {}
     x = rnd(B, D)
@@ -168,7 +212,7 @@ def kernel_phase(torch, timer, rates):
         return ref.rotate_half_split(y[:, : HQ + HKV], torch.cos(ang), torch.sin(ang)), y[:, HQ + HKV:]
 
     out_bytes = 2 * B * (HQ + 2 * HKV) * HD
-    t_bound, by = bound(nbytes(x, wq, wk, wv, pos) + out_bytes, 2 * B * D * (HQ + 2 * HKV) * HD)
+    t_bound, by = bound(rates, nbytes(x, wq, wk, wv, pos) + out_bytes, 2 * B * D * (HQ + 2 * HKV) * HD)
     rows["fused_qkv"] = dict(
         max_abs_err=err,
         ms=timer(lambda: decode.fused_qkv(x, wq, wk, wv, None, None, None, pos, **kw)),
@@ -206,7 +250,7 @@ def kernel_phase(torch, timer, rates):
     used = int(mask.sum().item())                                        # slots this run needs
     kv_bytes = 2 * used * HKV * HD * k.element_size()
     att_flops = 4 * used * HQ * HD + 2 * B * HQ * HD * D
-    t_bound, by = bound(nbytes(q, wo, bo, vlen, qpos) + kv_bytes + 2 * B * D, att_flops)
+    t_bound, by = bound(rates, nbytes(q, wo, bo, vlen, qpos) + kv_bytes + 2 * B * D, att_flops)
     kt, vt = k.transpose(1, 2), v.transpose(1, 2)                       # (B, H, Sk, hd)
     sdpa_mask = mask[:, None, None, :]
 
@@ -231,7 +275,7 @@ def kernel_phase(torch, timer, rates):
         got = decode.fused_mlp(x, wu, gate, bs[0], wd, bs[1], act=act)
         want = ref.fused_mlp_ref(x, wu, gate, bs[0], wd, bs[1], act=act)
         err = max(err, close(got, want, f"fused_mlp {act} bias={bias}"))
-    t_bound, by = bound(nbytes(x, wu, wg, wd) + 2 * B * D, 2 * B * D * FF * 3)
+    t_bound, by = bound(rates, nbytes(x, wu, wg, wd) + 2 * B * D, 2 * B * D * FF * 3)
     rows["fused_mlp"] = dict(
         max_abs_err=err,
         ms=timer(lambda: decode.fused_mlp(x, wu, wg, None, wd, None, act="swiglu")),
@@ -244,6 +288,318 @@ def kernel_phase(torch, timer, rates):
               f"plain_ms={r['plain_ms']} library_ms={r['library_ms']} "
               f"bound_ms={r['bound_ms']} ({r['bound_by']})", flush=True)
     return rows
+
+
+def resnet_setup(torch):
+    """Full-width seeded ResNet-50 on the card and the image of
+    ``repro_torch.examples.resnet_paper`` (numpy seed 0)."""
+    import numpy as np
+
+    from repro_torch.models import resnet
+
+    params = resnet.init_params(RESNET, 0, "cuda")
+    rng = np.random.default_rng(0)
+    img = torch.from_numpy(rng.integers(-100, 100, (IMAGE, IMAGE, 3), dtype=np.int8)).cuda()
+    return params, img
+
+
+def capture_pu_calls(torch, params, img):
+    """One forward with ``ops.conv2d_int8`` wrapped: the operands that each
+    convolution hands to the GEMM (the patch matrix, the re-laid weights,
+    the residual as a (P, N) map) and to im2col, as the main path gives
+    them."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import resnet
+
+    conv = ops.conv2d_int8
+    gemms, cols = [], []
+
+    def rec_conv(x, w4d, bias=None, *, k, stride=1, pad=0, shift=0, relu=False, residual=None):
+        if not (k == 1 and pad == 0):
+            cols.append(dict(img=x, k=k, stride=stride, pad=pad))
+        cout = w4d.shape[-1]
+        gemms.append(dict(a=ops.im2col(x, k, stride, pad),
+                          w=w4d.permute(3, 0, 1, 2).reshape(cout, -1).contiguous(),
+                          bias=bias, shift=shift, relu=relu,
+                          residual=None if residual is None else residual.reshape(-1, cout)))
+        return conv(x, w4d, bias, k=k, stride=stride, pad=pad, shift=shift, relu=relu,
+                    residual=residual)
+
+    ops.conv2d_int8 = rec_conv
+    try:
+        resnet.forward_int8(RESNET, params, img)
+    finally:
+        ops.conv2d_int8 = conv
+    torch.cuda.synchronize()
+    assert len(gemms) == N_GEMM and len(cols) == N_IM2COL, (len(gemms), len(cols))
+    return gemms, cols
+
+
+def per_call_times(timer, calls, key, fns):
+    """Median ms of each function in ``fns`` for each distinct ``key`` of
+    ``calls``, summed over all calls (every call timed cold, alone)."""
+    seen, totals = {}, {name: 0.0 for name in fns}
+    for c in calls:
+        k = key(c)
+        if k not in seen:
+            seen[k] = {name: timer(lambda f=f: f(c)) for name, f in fns.items()}
+            print(f"[pu]   {k}: " + " ".join(f"{n}={t}" for n, t in seen[k].items()), flush=True)
+        for name in fns:
+            totals[name] += seen[k][name]
+    return totals
+
+
+def pu_kernel_phase(torch, timer, rates, params, img):
+    """int8_gemm and im2col held bit for bit to their plain versions at
+    every call of a ResNet-50 forward (and the GEMM's epilogue cases),
+    niu_refresh on every weight matrix under the mismatch gate; times of
+    kernel, plain version and library yardstick; bounds."""
+    import importlib
+
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import niu as kniu
+    from repro_torch.kernels import ops, ref
+
+    kgemm = importlib.import_module("repro_torch.kernels.int8_gemm")
+    kim = importlib.import_module("repro_torch.kernels.im2col")
+    gemms, cols = capture_pu_calls(torch, params, img)
+    rows = {}
+
+    # --- int8_gemm -----------------------------------------------------------
+    def kernel(c, **over):
+        c = {**c, **over}
+        return kgemm.int8_gemm_pn(c["a"], c["w"], c["bias"], c["shift"], c["residual"], relu=c["relu"])
+
+    def plain(c, **over):
+        c = {**c, **over}
+        res = None if c["residual"] is None else c["residual"].T
+        return ref.int8_gemm_ref(c["w"], c["a"].T, c["bias"], c["shift"], c["relu"], res).T
+
+    def exact(got, want, what):
+        d = (got.to(torch.int32) - want.to(torch.int32)).abs().max().item()
+        assert d == 0 and got.dtype == want.dtype and got.shape == want.shape, f"{what}: differs by {d}"
+        return d
+
+    err = 0
+    for i, c in enumerate(gemms):
+        err = max(err, exact(kernel(c), plain(c), f"int8_gemm call {i} {tuple(c['a'].shape)}x{tuple(c['w'].shape)}"))
+    g = torch.Generator(device="cuda").manual_seed(3)
+    cases = 0
+    for c in (gemms[1], next(c for c in gemms if c["residual"] is not None)):
+        p, n = c["a"].shape[0], c["w"].shape[0]
+        bias = torch.randint(-2 ** 20, 2 ** 20, (n,), generator=g, device="cuda", dtype=torch.int32)
+        res = torch.randint(-128, 128, (p, n), generator=g, device="cuda", dtype=torch.int8)
+        for b in (None, bias):
+            for shift in (-3, 0, 7, 16):
+                for relu in (False, True):
+                    for r in (None, res):
+                        over = dict(bias=b, shift=shift, relu=relu, residual=r)
+                        err = max(err, exact(kernel(c, **over), plain(c, **over), f"int8_gemm epilogue {over}"))
+                        cases += 1
+    c = gemms[0]
+    w, x = c["w"], c["a"].T.contiguous()
+    err = max(err, exact(ops.int8_gemm(w, x, c["bias"], c["shift"], relu=True),
+                         ref.int8_gemm_ref(w, x, c["bias"], c["shift"], True), "public int8_gemm"))
+    print(f"[pu] int8_gemm: {len(gemms)} forward calls and {cases} epilogue cases equal the plain "
+          f"version bit for bit", flush=True)
+
+    def library(c):
+        a, w = c["a"], c["w"]
+        p, m = a.shape
+        ap = torch.zeros((max(p, 17), -(-m // 8) * 8), dtype=torch.int8, device="cuda")
+        wp = torch.zeros((w.shape[0], ap.shape[1]), dtype=torch.int8, device="cuda")
+        ap[:p, :m], wp[:, :m] = a, w
+        bias, shift, res, relu = c["bias"], c["shift"], c["residual"], c["relu"]
+
+        def run():     # cuBLASLt int8 GEMM on operands padded to its shape rules
+            acc = torch._int_mm(ap, wp.t())[:p]
+            if bias is not None:
+                acc = acc + bias
+            return ref._epilogue(acc, shift, relu, res)
+        run.int_mm = lambda: torch._int_mm(ap, wp.t())
+        return run
+
+    libs = [library(c) for c in gemms]
+    exact(libs[1](), kernel(gemms[1]), "torch._int_mm yardstick")
+    lib_of = {id(c): f for c, f in zip(gemms, libs)}
+    times = per_call_times(
+        timer, gemms,
+        lambda c: (tuple(c["a"].shape), tuple(c["w"].shape), c["residual"] is not None, c["relu"]),
+        dict(ms=kernel, plain_ms=plain, library_ms=lambda c: lib_of[id(c)](),
+             int_mm_alone_ms=lambda c: lib_of[id(c)].int_mm()),
+    )
+    print(f"[pu] int8_gemm: torch._int_mm alone (no epilogue) {times.pop('int_mm_alone_ms')} ms "
+          f"over the forward's calls", flush=True)
+    nb = sum(nbytes(c["a"], c["w"], c["bias"], c["residual"]) + c["a"].shape[0] * c["w"].shape[0]
+             for c in gemms)
+    ops_ = sum(2 * c["a"].shape[0] * c["w"].shape[0] * c["a"].shape[1] for c in gemms)
+    t_bound, by = bound(rates, nb, ops_, "int8")
+    rows["int8_gemm"] = dict(max_abs_err=err, bound_ms=t_bound, bound_by=by, **times)
+    print(f"[pu] int8_gemm over one forward's {len(gemms)} calls: {nb} bytes, {ops_} int8 operations", flush=True)
+
+    # --- im2col --------------------------------------------------------------
+    err = 0
+    for i, c in enumerate(cols):
+        for dt in (torch.int8, torch.bfloat16, torch.float32):
+            x = c["img"].to(dt)
+            got, want = kim.im2col(x, c["k"], c["stride"], c["pad"]), ref.im2col_ref(x, c["k"], c["stride"], c["pad"])
+            assert got.dtype == dt and torch.equal(got, want), f"im2col call {i} {tuple(x.shape)} {dt}"
+    print(f"[pu] im2col: {len(cols)} forward calls equal the plain version bit for bit in int8, "
+          f"bf16 and float32", flush=True)
+
+    def unfold(c):     # the unfold-view chain, made contiguous
+        x, k, st, pd = c["img"], c["k"], c["stride"], c["pad"]
+        xp = F.pad(x, (0, 0, pd, pd, pd, pd))
+        return xp.unfold(0, k, st).unfold(1, k, st).permute(0, 1, 3, 4, 2).reshape(-1, k * k * x.shape[2])
+
+    assert torch.equal(unfold(cols[1]), kim.im2col(cols[1]["img"], cols[1]["k"], cols[1]["stride"], cols[1]["pad"]))
+    times = per_call_times(
+        timer, cols, lambda c: (tuple(c["img"].shape), c["k"], c["stride"], c["pad"]),
+        dict(ms=lambda c: kim.im2col(c["img"], c["k"], c["stride"], c["pad"]),
+             plain_ms=lambda c: ref.im2col_ref(c["img"], c["k"], c["stride"], c["pad"]),
+             library_ms=unfold),
+    )
+    nb = 0
+    for c in cols:
+        h, w_, ch = c["img"].shape
+        oh = (h + 2 * c["pad"] - c["k"]) // c["stride"] + 1
+        ow = (w_ + 2 * c["pad"] - c["k"]) // c["stride"] + 1
+        nb += h * w_ * ch + oh * ow * c["k"] ** 2 * ch
+    t_bound, by = bound(rates, nb)
+    rows["im2col"] = dict(max_abs_err=0, bound_ms=t_bound, bound_by=by, **times)
+
+    # --- niu_refresh -----------------------------------------------------------
+    mats = niu_matrices(params)
+    worst, bad, total = 0, 0, 0
+    for q, e in mats:
+        for seed in NIU_SEEDS:
+            d = (ops.niu_refresh(q, e, seed).to(torch.int32) - ops.niu_refresh_ref(q, e, seed).to(torch.int32)).abs()
+            worst, bad, total = max(worst, d.max().item()), bad + (d > 0).sum().item(), total + d.numel()
+    rate = bad / total
+    print(f"[pu] niu_refresh: {len(mats)} weight matrices x {len(NIU_SEEDS)} seeds, {total} elements: "
+          f"{'bit for bit equal' if bad == 0 else f'{bad} differ (rate {rate})'}, max |diff| {worst} "
+          f"(gate: <= 1 on at most {NIU_MAX_RATE})", flush=True)
+    assert worst <= 1 and rate <= NIU_MAX_RATE, (worst, rate)
+    n_el = sum(q.numel() for q, _ in mats)
+    t_bound, by = bound(rates, 2 * n_el, NIU_OPS * n_el, "f32")
+    # the kernel is timed alone, on arguments prepared as the wrapper
+    # prepares them; the wrapper's whole call (its reduction for w_max and
+    # the scalars included) is timed beside it
+    calls = []
+    for q, e in mats:
+        scale = torch.exp2(e.to(torch.float32))
+        w_max = q.to(torch.float32).abs().amax() * scale
+        calls.append(dict(q=q, e=e, scale=scale, w_max=w_max, out=torch.empty_like(q),
+                          seed=torch.tensor(1, dtype=torch.int32, device="cuda")))
+    niu_kw = dict(prog_noise_scale=0.1, read_noise_scale=0.02, drift=1.0)
+    kniu.launch(calls[0]["q"], calls[0]["out"], calls[0]["scale"], calls[0]["seed"], calls[0]["w_max"], **niu_kw)
+    assert torch.equal(calls[0]["out"], ops.niu_refresh(calls[0]["q"], calls[0]["e"], 1)), "niu launch alone"
+    times = per_call_times(
+        timer, calls, lambda c: tuple(c["q"].shape),
+        dict(ms=lambda c: kniu.launch(c["q"], c["out"], c["scale"], c["seed"], c["w_max"], **niu_kw),
+             plain_ms=lambda c: ops.niu_refresh_ref(c["q"], c["e"], 1),
+             wrapper_ms=lambda c: ops.niu_refresh(c["q"], c["e"], 1)),
+    )
+    print(f"[pu] niu_refresh: the wrapper's whole call, over the round: {times.pop('wrapper_ms')} ms",
+          flush=True)
+    rows["niu_refresh"] = dict(
+        max_abs_err=worst, bound_ms=t_bound, bound_by=by,
+        library_ms=None,       # no PyTorch call computes the counter-hash RNG
+        **times,
+    )
+    what = {"int8_gemm": f"the {N_GEMM} calls of one forward", "im2col": f"the {N_IM2COL} calls of "
+            f"one forward", "niu_refresh": f"one round over {len(mats)} matrices"}
+    for name, r in rows.items():
+        print(f"[pu] {name} ({what[name]}): max_abs_err={r['max_abs_err']} kernel_ms={r['ms']} plain_ms={r['plain_ms']} "
+              f"library_ms={r['library_ms']} bound_ms={r['bound_ms']} ({r['bound_by']})", flush=True)
+    return rows
+
+
+def niu_matrices(params):
+    """Every weight matrix of the model as (k*k*cin, cout) int8 and its exponent."""
+    return [(p["w"].q.reshape(-1, p["w"].q.shape[-1]), p["w"].exp) for p in params.values()]
+
+
+def resnet_phase(torch, rates, params, img):
+    """Full-width ResNet-50 on the card: launches of the main path, the
+    trunk and logits against the CPU's plain forward, the float reference,
+    ms per image, a profile of one forward, and one NIU round."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.kernels import common, ops
+    from repro_torch.models import resnet
+
+    resnet.forward_int8(RESNET, params, img)
+    torch.cuda.synchronize()
+    common.reset_launches()                     # count the main path's run only
+    logits = resnet.forward_int8(RESNET, params, img)
+    torch.cuda.synchronize()
+    launches = common.launch_counts()
+    print(f"[resnet] launches in one forward: {launches}", flush=True)
+    assert launches["int8_gemm"] == N_GEMM and launches["im2col"] == N_IM2COL, launches
+    assert logits.shape == (1000,) and logits.dtype == torch.float32 and torch.isfinite(logits).all().item()
+
+    cpu = {name: {k: v.to("cpu") for k, v in layer.items()} for name, layer in params.items()}
+    trunk = resnet._trunk_int8(RESNET, params, img).cpu()
+    trunk_cpu = resnet._trunk_int8(RESNET, cpu, img.cpu())
+    assert trunk.dtype == torch.int8 and torch.equal(trunk, trunk_cpu), "trunk differs from the CPU's"
+    want = resnet.forward_int8(RESNET, cpu, img.cpu())
+    got = logits.cpu()
+    diff = (got - want).abs()
+    top5, top5_cpu = torch.topk(got, 5).indices.tolist(), torch.topk(want, 5).indices.tolist()
+    print(f"[resnet] trunk {tuple(trunk.shape)} int8 equal to the CPU's bit for bit; logits "
+          f"|card - cpu| max {diff.max().item()}, max relative {(diff / want.abs()).max().item()} "
+          f"(|logit| up to {want.abs().max().item()}; rtol {RESNET_RTOL}, atol {RESNET_ATOL}); "
+          f"top-5 {top5} (cpu {top5_cpu})", flush=True)
+    torch.testing.assert_close(got, want, rtol=RESNET_RTOL, atol=RESNET_ATOL)
+    assert top5 == top5_cpu
+    lf = resnet.forward_float(RESNET, params, img).cpu()
+    corr = torch.corrcoef(torch.stack([got, lf]))[0, 1].item()
+    print(f"[resnet] forward_float on the card: corr(int8, float) = {corr} (bar 0.7)", flush=True)
+    assert torch.isfinite(lf).all().item() and corr > 0.7, corr
+
+    times = []
+    for _ in range(FORWARDS):
+        t0 = time.perf_counter()
+        resnet.forward_int8(RESNET, params, img)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    ms = statistics.median(times) * 1e3
+    print(f"[resnet] forward_int8 {IMAGE}x{IMAGE}, batch 1: median {ms} ms per image over "
+          f"{FORWARDS} forwards (min {min(times) * 1e3}, max {max(times) * 1e3}) = "
+          f"{1e3 / ms} images/s", flush=True)
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function("resnet_forward"):
+            resnet.forward_int8(RESNET, params, img)
+            torch.cuda.synchronize()
+    window, busy, by_name = device_busy(torch, prof, "resnet_forward")
+    print(f"[profile] one ResNet-50 forward: {window / 1e3} ms under the profiler, device busy "
+          f"{busy / 1e3} ms, idle share {1 - busy / window}; busy / unprofiled forward "
+          f"({ms} ms) = {busy / 1e3 / ms}", flush=True)
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
+        print(f"[profile]   {us / 1e3} ms  {name[:110]}", flush=True)
+
+    mats = niu_matrices(params)
+    common.reset_launches()                     # the NIU round's own count
+    t0 = time.perf_counter()
+    noisy = [ops.niu_refresh(q, e, 7) for q, e in mats]
+    torch.cuda.synchronize()
+    round_ms = (time.perf_counter() - t0) * 1e3
+    niu_launches = common.launch_counts()["niu_refresh"]
+    assert niu_launches == len(mats) and all(n.shape == q.shape for n, (q, _) in zip(noisy, mats))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function("niu_round"):
+            [ops.niu_refresh(q, e, 8) for q, e in mats]
+            torch.cuda.synchronize()
+    window, busy, by_name = device_busy(torch, prof, "niu_round")
+    kernel_us = sum(us for n, us in by_name.items() if "niu_kernel" in n)
+    print(f"[niu] one NIU round over {len(mats)} weight matrices ({sum(q.numel() for q, _ in mats)} "
+          f"int8 weights): {round_ms} ms on the host clock, launches {niu_launches}; under the "
+          f"profiler {window / 1e3} ms, device busy {busy / 1e3} ms, of it niu_kernel "
+          f"{kernel_us / 1e3} ms", flush=True)
+    return dict(launches={**launches, "niu_refresh": niu_launches}, ms=ms)
 
 
 def model_step_phase(torch):
@@ -327,9 +683,9 @@ def serve_phase(torch, rates):
             # least time a round could take: every weight and the whole
             # KV cache read once at the card's memory rate
             wb, kvb = tree_bytes(engine.params), tree_bytes(engine._cache)
-            bound_s = (wb + kvb) / rates[0]
+            bound_s = (wb + kvb) / rates["bytes"]
             print(f"[serve] round bound {bound_s * 1e3} ms (weights {wb} B + KV cache {kvb} B "
-                  f"at {rates[0]} B/s); kernel-path round / bound = "
+                  f"at {rates['bytes']} B/s); kernel-path round / bound = "
                   f"{st['mean_decode_round_s'] / bound_s}", flush=True)
         runs[label] = dict(streams=streams, launches=launches, round_s=st["mean_decode_round_s"])
         del engine
@@ -454,6 +810,27 @@ def fault_phase(torch, want_streams, want_rounds):
         torch.cuda.empty_cache()
 
 
+def device_busy(torch, prof, window_name: str):
+    """(window us, device-busy us, {device op: us}) inside the host span
+    ``window_name`` of a torch.profiler run; the span's own annotation is
+    mirrored on the device timeline and is not work."""
+    events = prof.events()
+    cuda = torch.autograd.DeviceType.CUDA
+    (w0, w1), = [(e.time_range.start, e.time_range.end) for e in events
+                 if e.name == window_name and e.device_type != cuda]
+    dev = sorted((max(e.time_range.start, w0), min(e.time_range.end, w1), e.name)
+                 for e in events
+                 if e.device_type == cuda and e.name != window_name
+                 and e.time_range.end > w0 and e.time_range.start < w1)
+    assert dev, f"the profiler recorded no device activity in {window_name}"
+    busy, end, by_name = 0.0, w0, {}
+    for s, e, name in dev:
+        busy += max(0.0, e - max(s, end))
+        end = max(end, e)
+        by_name[name] = by_name.get(name, 0.0) + (e - s)
+    return w1 - w0, busy, by_name
+
+
 def profile_phase(torch, round_s: float):
     """torch.profiler over the kernel path's first engine step (the first
     wave's prefill and a 32-round decode block): device time per round by
@@ -476,23 +853,8 @@ def profile_phase(torch, round_s: float):
         engine.step()
     rounds = engine.decode_rounds
     del engine
-    events = prof.events()
-    cuda = torch.autograd.DeviceType.CUDA
-    (w0, w1), = [(e.time_range.start, e.time_range.end) for e in events
-                 if e.name == "decode_block" and e.device_type != cuda]
-    # device activity inside the block; the block's own annotation is
-    # mirrored on the device timeline and is not work
-    dev = sorted((max(e.time_range.start, w0), min(e.time_range.end, w1), e.name)
-                 for e in events
-                 if e.device_type == cuda and e.name != "decode_block"
-                 and e.time_range.end > w0 and e.time_range.start < w1)
-    assert dev, "the profiler recorded no device activity in the decode block"
-    busy, end, by_name = 0.0, w0, {}
-    for s, e, name in dev:
-        busy += max(0.0, e - max(s, end))
-        end = max(end, e)
-        by_name[name] = by_name.get(name, 0.0) + (e - s)
-    window_ms, busy_ms = (w1 - w0) / 1e3 / rounds, busy / 1e3 / rounds
+    window, busy, by_name = device_busy(torch, prof, "decode_block")
+    window_ms, busy_ms = window / 1e3 / rounds, busy / 1e3 / rounds
     print(f"[profile] {rounds} rounds traced: block {window_ms} ms a round, device busy "
           f"{busy_ms} ms a round, idle share {1 - busy_ms / window_ms} under the profiler; "
           f"busy / unprofiled round ({round_s * 1e3} ms) = {busy_ms / (round_s * 1e3)}", flush=True)
@@ -515,25 +877,36 @@ def main() -> int:
     print(f"[card] {card}", flush=True)
     name = torch.cuda.get_device_name(0)
     t0 = time.perf_counter()
-    lib = build.build()
-    print(f"[build] {lib.name} in {time.perf_counter() - t0:.1f} s", flush=True)
-    print(build.library_path().with_suffix(".ptxas.txt").read_text()[-6000:], flush=True)
+    libs = build.build_all()
+    print(f"[build] {', '.join(p.name for p in libs.values())} in {time.perf_counter() - t0:.1f} s "
+          f"(one nvcc per source, in parallel)", flush=True)
+    for src in libs:
+        print(build.ptxas_report(src).read_text()[-4000:], flush=True)
 
-    rows = kernel_phase(torch, Timer(torch, TIMED_CALLS), card_rates(name))
+    rates = card_rates(name)
+    timer = Timer(torch, TIMED_CALLS)
+    rows = kernel_phase(torch, timer, rates)
+    params, img = resnet_setup(torch)
+    rows.update(pu_kernel_phase(torch, timer, rates, params, img))
+    resnet = resnet_phase(torch, rates, params, img)
+    del params, img, timer
+    torch.cuda.empty_cache()
     model_step_phase(torch)
     torch.cuda.empty_cache()
-    runs = serve_phase(torch, card_rates(name))
+    runs = serve_phase(torch, rates)
     want_streams, want_rounds = forced_phase(torch, runs)
     fault_phase(torch, want_streams, want_rounds)
     del want_rounds
     torch.cuda.empty_cache()
     profile_phase(torch, runs["kernels"]["round_s"])
-    launches = runs["kernels"]["launches"]
+    launches = {**runs["kernels"]["launches"], **{k: resnet["launches"][k] for k in
+                                                  ("int8_gemm", "im2col", "niu_refresh")}}
     kernels = [
-        dict(name=n, route="cuda", source=SOURCE, replaces=REPLACES[n],
+        dict(name=n, route="cuda", source=SOURCES[n], replaces=REPLACES[n],
              launches=launches[n], kernel_ms=r["ms"], **r)
         for n, r in rows.items()
     ]
+    assert len(kernels) == len(SOURCES)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

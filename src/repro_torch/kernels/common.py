@@ -36,3 +36,51 @@ def use_kernel(t: torch.Tensor) -> bool:
     if t.device.type == "cpu":
         return False
     raise ValueError(f"unsupported device {t.device}")
+
+
+def device_int(v: Union[int, torch.Tensor], name: str, dev: torch.device) -> torch.Tensor:
+    """A scalar integer argument as the () int32 tensor on ``dev`` that a
+    kernel reads through a pointer.  A Python int is filled on the device,
+    so no call syncs to the host; a tensor must already be there."""
+    if not isinstance(v, torch.Tensor):
+        return torch.full((), int(v), dtype=torch.int32, device=dev)
+    if v.device != dev or v.numel() != 1 or v.is_floating_point():
+        raise ValueError(f"{name} must be one integer on {dev}, got {v.dtype} "
+                         f"{tuple(v.shape)} on {v.device}")
+    return v.reshape(()).to(torch.int32)
+
+
+def raise_on(err: int, name: str):
+    """Raise if a C entry point returned a CUDA error (its launch failed)."""
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def cuda_stream() -> int:
+    """The current CUDA stream as the pointer a C entry point takes."""
+    return torch.cuda.current_stream().cuda_stream
+
+
+# Every kernel wrapper carries ``launches``, a plain integer that counts
+# the calls that went to its kernel (never a call that took the plain
+# version), so a run can show that its path went through the kernels.
+_COUNTED = []
+
+
+def count_launches(*fns):
+    """Give each wrapper a ``launches`` count of 0 and register it with
+    :func:`reset_launches`."""
+    for fn in fns:
+        fn.launches = 0
+        _COUNTED.append(fn)
+
+
+def reset_launches():
+    """Set every wrapper's launch count back to 0."""
+    for fn in _COUNTED:
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    """Every registered wrapper's launch count, by the wrapper's name."""
+    return {fn.__name__: fn.launches for fn in _COUNTED}

@@ -15,7 +15,8 @@ take (dtype, shape, layout) raises: it never falls back.
 
 Each wrapper carries ``launches``, a plain integer that counts its calls
 that went to the kernel (one per call, though attention and MLP make two
-launches each); :func:`reset_launches` sets them to 0.
+launches each); :func:`reset_launches` sets them, and every other kernel
+wrapper's count (``kernels.common``), to 0.
 """
 from __future__ import annotations
 
@@ -25,7 +26,9 @@ from typing import Optional, Sequence
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.common import use_kernel
+from repro_torch.kernels.common import count_launches, reset_launches, use_kernel  # noqa: F401
+from repro_torch.kernels.common import cuda_stream as _stream
+from repro_torch.kernels.common import raise_on as _raise_on
 
 _MAX_B = 8
 _ACT = {"swiglu": 0, "gelu": 1, "sq_relu": 2}
@@ -53,19 +56,10 @@ def _check_opt(name, t, shape, device, dtype=torch.bfloat16):
         _check(name, t, shape, device, dtype)
 
 
-def _raise_on(err: int, name: str):
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA error {err} at launch")
-
-
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
-
-
 def _lib():
     from repro_torch.kernels import build
 
-    return build.load()
+    return build.load("decode")
 
 
 @functools.lru_cache(maxsize=None)
@@ -279,11 +273,4 @@ def fused_mlp(
 
 
 KERNELS = (fused_qkv, fused_decode_attention, fused_mlp)
-for _fn in KERNELS:
-    _fn.launches = 0
-
-
-def reset_launches():
-    """Set every wrapper's launch count back to 0."""
-    for fn in KERNELS:
-        fn.launches = 0
+count_launches(*KERNELS)

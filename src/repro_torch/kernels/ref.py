@@ -1,6 +1,14 @@
-"""Plain PyTorch versions of the decode kernels (the oracles).
+"""Plain PyTorch versions of the kernels (the oracles).
 
-Each mirrors ``repro.kernels.ref`` op for op, rounding points included:
+The PU kernels (``int8_gemm``, ``im2col``, conv-as-GEMM) are integer
+arithmetic and equal the JAX oracles bit for bit.  PyTorch has no integer
+matrix product on CUDA, so the products run in float64: exact, since every
+partial sum of int8 x int8 products over fewer than 2**38 terms stays
+below 2**53.  The int32 accumulator then wraps as XLA's does
+(``core.quant.wrap_i32``).
+
+The decode oracles mirror ``repro.kernels.ref`` op for op, rounding points
+included:
 one rounding to the compute dtype per matrix product, then the bias, then
 RoPE in float32 on the rounded value; ``(q * scale)`` rounded to the
 compute dtype before the score product; the ``-1e30`` mask sentinel and
@@ -18,8 +26,79 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.quant import INT8_MAX, INT8_MIN, IntLike, shift_round, wrap_i32
+
 NEG = -1e30
 BIG_WINDOW = 2 ** 31 - 1      # int32 max: "no window"
+
+
+# ------------------------------------------------------ PU datapath oracles --
+# int8 weights x int8 activations -> int32 accumulate (+ int32 bias) ->
+# power-of-two scale/shift -> saturate to int8 -> optional fused residual
+# addition (saturating) -> optional ReLU (paper Fig. 2).
+
+
+def _epilogue(acc: torch.Tensor, shift: IntLike, relu: bool,
+              residual: Optional[torch.Tensor]) -> torch.Tensor:
+    y = torch.clamp(shift_round(acc, shift), INT8_MIN, INT8_MAX)
+    if residual is not None:
+        y = torch.clamp(y + residual.to(torch.int32), INT8_MIN, INT8_MAX)
+    if relu:
+        y = torch.clamp(y, min=0)
+    return y.to(torch.int8)
+
+
+def int8_gemm_ref(
+    w: torch.Tensor,                       # (N, M) int8 weights
+    x: torch.Tensor,                       # (M, P) int8 activations
+    bias: Optional[torch.Tensor] = None,   # (N,) int32
+    shift: IntLike = 0,                    # power-of-two rescale (right shift)
+    relu: bool = False,
+    residual: Optional[torch.Tensor] = None,   # (N, P) int8, same output grid
+) -> torch.Tensor:
+    """Oracle for the systolic-array GEMM + post-processing chain -> (N, P) int8."""
+    acc = (w.to(torch.float64) @ x.to(torch.float64)).to(torch.int64)
+    if bias is not None:
+        acc = acc + bias.to(torch.int64)[:, None]
+    return _epilogue(wrap_i32(acc), shift, relu, residual)
+
+
+def im2col_ref(img: torch.Tensor, k: int, stride: int, pad: int) -> torch.Tensor:
+    """Oracle for the IM2COL transform: ``img`` (H, W, C) in the paper's HWC
+    order -> (OH*OW, k*k*C) patch rows, [(ki, kj) outer, C inner]; zero
+    padding."""
+    h, w, c = img.shape
+    imgp = F.pad(img, (0, 0, pad, pad, pad, pad))
+    oh = (h + 2 * pad - k) // stride + 1
+    ow = (w + 2 * pad - k) // stride + 1
+    rows = []
+    for ki in range(k):
+        for kj in range(k):
+            sl = imgp[ki: ki + (oh - 1) * stride + 1: stride,
+                      kj: kj + (ow - 1) * stride + 1: stride]      # (OH, OW, C)
+            rows.append(sl.reshape(oh * ow, c))
+    return torch.cat(rows, dim=-1)
+
+
+def conv2d_int8_ref(
+    img: torch.Tensor,                     # (H, W, Cin) int8
+    w4d: torch.Tensor,                     # (k, k, Cin, Cout) int8
+    bias: Optional[torch.Tensor] = None,   # (Cout,) int32
+    stride: int = 1,
+    pad: int = 0,
+    shift: IntLike = 0,
+    relu: bool = False,
+    residual: Optional[torch.Tensor] = None,   # (OH, OW, Cout) int8
+) -> torch.Tensor:
+    """End-to-end conv oracle through ``F.conv2d`` in float64 (exact): a
+    layout-independent cross-check of the im2col + GEMM composition."""
+    lhs = img.to(torch.float64).permute(2, 0, 1)[None]             # NCHW
+    rhs = w4d.to(torch.float64).permute(3, 2, 0, 1)                # OIHW
+    acc = F.conv2d(lhs, rhs, stride=stride, padding=pad)[0].permute(1, 2, 0)
+    acc = acc.to(torch.int64)                                      # (OH, OW, Cout)
+    if bias is not None:
+        acc = acc + bias.to(torch.int64)
+    return _epilogue(wrap_i32(acc), shift, relu, residual)
 
 
 def dtype_scalar(x: float, dt: torch.dtype) -> float:

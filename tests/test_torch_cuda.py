@@ -1,14 +1,19 @@
-"""The CUDA decode kernels against their plain versions, on the card.
+"""The CUDA kernels against their plain versions, on the card.
 
 Marked ``cuda``: without a CUDA device every test here skips.  Run on a
 machine with an H100 with
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 
-They cover what ``chip_smoke.py`` (olmo-1b shapes only) does not: other
-batch sizes, grouped-query heads (G = Hq/Hkv > 1), head widths 32 and
-64, every activation, and the smoke engine on the card.  Tolerance:
-atol = rtol = 2e-2 in bf16, as in ``chip_smoke.py``.
+They cover what ``chip_smoke.py`` (olmo-1b and ResNet-50 shapes only)
+does not.  Decode kernels: other batch sizes, grouped-query heads
+(G = Hq/Hkv > 1), head widths 32 and 64, every activation, and the smoke
+engine on the card; tolerance atol = rtol = 2e-2 in bf16, as in
+``chip_smoke.py``.  PU kernels: ``int8_gemm`` with N, M and P that are
+multiples of no tile and shifts -8..31, ``im2col`` with C = 1 and 2 and
+odd geometries, conv-as-GEMM, and ResNet-18 on the card against the CPU,
+all bit for bit; ``niu_refresh`` at odd shapes, within the gate of
+``chip_smoke.py`` (|diff| <= 1 on at most 1e-4 of the elements).
 """
 import numpy as np
 import pytest
@@ -16,7 +21,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_config, smoke_variant  # noqa: E402
-from repro_torch.kernels import decode, ref  # noqa: E402
+from repro_torch.kernels import common, decode, ops, ref  # noqa: E402
+from repro_torch.kernels.int8_gemm import int8_gemm_pn  # noqa: E402
 from repro_torch.runtime.serving import ServeConfig, ServingEngine  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -127,3 +133,109 @@ def test_smoke_engine_on_card(gen):
     assert len(done) == 5 and all(len(r.out_tokens) == 7 for r in done)
     for fn in decode.KERNELS:
         assert fn.launches == cfg.n_layers * eng.decode_rounds > 0
+
+
+# ------------------------------------------------------------- PU kernels --
+
+
+def _i8(gen, *shape, lo=-128, hi=128):
+    return torch.randint(lo, hi, shape, generator=gen, device="cuda", dtype=torch.int8)
+
+
+@pytest.mark.parametrize("n,m,p", [(1, 1, 1), (7, 13, 5), (100, 200, 72), (129, 257, 130),
+                                   (65, 147, 17), (33, 4608, 49), (2048, 64, 3)])
+def test_int8_gemm_shapes(gen, n, m, p):
+    w, x = _i8(gen, n, m), _i8(gen, m, p)
+    bias = torch.randint(-5000, 5000, (n,), generator=gen, device="cuda", dtype=torch.int32)
+    common.reset_launches()
+    got = ops.int8_gemm(w, x, bias, shift=7)
+    assert common.launch_counts()["int8_gemm"] == 1
+    assert torch.equal(got, ref.int8_gemm_ref(w, x, bias, 7))
+
+
+@pytest.mark.parametrize("shift", list(range(-8, 32)))
+def test_int8_gemm_shift_sweep(gen, shift):
+    w, x = _i8(gen, 40, 96), _i8(gen, 96, 70)
+    bias = torch.randint(-2 ** 20, 2 ** 20, (40,), generator=gen, device="cuda", dtype=torch.int32)
+    res = _i8(gen, 40, 70)
+    for relu in (False, True):
+        got = ops.int8_gemm(w, x, bias, shift=torch.tensor(shift, dtype=torch.int32, device="cuda"),
+                            residual=res, relu=relu)
+        assert torch.equal(got, ref.int8_gemm_ref(w, x, bias, shift, relu, res)), (shift, relu)
+
+
+def test_int8_gemm_overflow_regime(gen):
+    w = torch.full((8, 4608), -128, dtype=torch.int8, device="cuda")
+    x = torch.full((4608, 24), -128, dtype=torch.int8, device="cuda")
+    bias = torch.full((8,), 2 ** 31 - 1, dtype=torch.int32, device="cuda")   # the sum wraps
+    for shift in (0, 16, 31):
+        assert torch.equal(ops.int8_gemm(w, x, bias, shift=shift), ref.int8_gemm_ref(w, x, bias, shift))
+
+
+@pytest.mark.parametrize("h,w,c,k,stride,pad", [
+    (8, 8, 3, 3, 1, 1), (7, 9, 2, 3, 1, 0), (16, 16, 1, 5, 2, 2), (11, 5, 2, 3, 3, 2),
+    (13, 13, 32, 3, 2, 1), (9, 9, 48, 5, 1, 2), (224, 224, 3, 7, 2, 3), (5, 5, 16, 5, 1, 0),
+])
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16, torch.float32])
+def test_im2col(gen, h, w, c, k, stride, pad, dtype):
+    img = torch.randn((h, w, c), generator=gen, device="cuda").mul(50).to(dtype)
+    common.reset_launches()
+    got = ops.im2col(img, k, stride, pad)
+    assert common.launch_counts()["im2col"] == 1
+    assert torch.equal(got, ref.im2col_ref(img, k, stride, pad))
+
+
+@pytest.mark.parametrize("h,cin,cout,k,stride,pad,relu", [
+    (8, 3, 16, 3, 1, 1, True), (8, 4, 8, 3, 2, 1, False), (9, 2, 4, 1, 1, 0, True),
+    (10, 3, 6, 1, 2, 0, False), (12, 2, 4, 5, 2, 2, True), (15, 16, 70, 3, 2, 1, True),
+])
+def test_conv2d_int8(gen, h, cin, cout, k, stride, pad, relu):
+    img, w4d = _i8(gen, h, h, cin), _i8(gen, k, k, cin, cout)
+    bias = torch.randint(-300, 300, (cout,), generator=gen, device="cuda", dtype=torch.int32)
+    oh = (h + 2 * pad - k) // stride + 1
+    res = _i8(gen, oh, oh, cout)
+    kw = dict(stride=stride, pad=pad, shift=7, relu=relu, residual=res)
+    got = ops.conv2d_int8(img, w4d, bias, k=k, **kw)
+    assert torch.equal(got, ref.conv2d_int8_ref(img, w4d, bias, **kw))
+
+
+@pytest.mark.parametrize("r,c", [(1, 1), (3, 5), (257, 129), (1000, 3), (7, 4609)])
+@pytest.mark.parametrize("seed", [0, -7, 2 ** 31 - 1])
+def test_niu_refresh(gen, r, c, seed):
+    q = _i8(gen, r, c, lo=-127)
+    exp = torch.tensor(-9, dtype=torch.int32, device="cuda")
+    for kw in ({}, dict(prog_noise_scale=2.0, read_noise_scale=1.0, drift=0.8)):
+        common.reset_launches()
+        got = ops.niu_refresh(q, exp, seed, **kw)
+        assert common.launch_counts()["niu_refresh"] == 1
+        d = (got.int() - ops.niu_refresh_ref(q, exp, seed, **kw).int()).abs()
+        assert d.max().item() <= 1
+        assert (d > 0).sum().item() <= max(1, int(1e-4 * q.numel()))
+
+
+def test_pu_kernels_reject_what_they_cannot_take(gen):
+    with pytest.raises(ValueError):
+        ops.int8_gemm(_i8(gen, 4, 8).float(), _i8(gen, 8, 4))
+    with pytest.raises(ValueError):
+        int8_gemm_pn(_i8(gen, 8, 4).t(), _i8(gen, 4, 8))             # not contiguous
+    with pytest.raises(ValueError):
+        ops.int8_gemm(_i8(gen, 4, 8), _i8(gen, 8, 4), shift=torch.tensor(1.0, device="cuda"))
+    with pytest.raises(TypeError):
+        ops.im2col(torch.zeros((4, 4, 2), dtype=torch.float64, device="cuda"), 3, 1, 1)
+    with pytest.raises(ValueError):
+        ops.niu_refresh(_i8(gen, 4, 8).t(), 0, 1)
+
+
+def test_resnet18_on_card_equals_cpu(gen):
+    from repro_torch.models import resnet
+
+    params = resnet.init_params(18, 0, "cuda", num_classes=10)
+    cpu = {k: {n: (v.to("cpu")) for n, v in layer.items()} for k, layer in params.items()}
+    img = _i8(gen, 28, 28, 3, lo=-100, hi=100)
+    common.reset_launches()
+    got = resnet._trunk_int8(18, params, img)
+    assert common.launch_counts()["int8_gemm"] == 20
+    assert torch.equal(got.cpu(), resnet._trunk_int8(18, cpu, img.cpu()))
+    lg = resnet.forward_int8(18, params, img).cpu()
+    lc = resnet.forward_int8(18, cpu, img.cpu())
+    torch.testing.assert_close(lg, lc, rtol=1e-5, atol=1e-2)

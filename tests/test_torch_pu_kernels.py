@@ -1,0 +1,207 @@
+"""The port's PU kernels on the CPU path, held against the JAX package.
+
+Each plain PyTorch version (what a CPU tensor runs) is compared with the
+JAX Pallas kernel, run through the Pallas interpreter as
+``tests/test_kernels.py`` and ``tests/test_niu_kernel.py`` run it, and
+with the JAX oracle, on the same numpy inputs -- bit for bit: the GEMM,
+im2col and conv are integer arithmetic, and the NIU's float32 steps round
+where XLA's do.  The cases mirror those two files.  The CUDA kernels run
+only on the card (``chip_smoke.py``, ``tests/test_torch_cuda.py``).
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import niu as jniu  # noqa: E402
+from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro_torch.kernels import common, ops  # noqa: E402
+
+
+@pytest.fixture(autouse=True)
+def _no_launches():
+    common.reset_launches()
+    yield
+    assert not any(common.launch_counts().values()), "a CPU tensor must never count as a kernel launch"
+
+
+def _i8(rng, shape, lo=-128):
+    return rng.integers(lo, 128, shape, dtype=np.int8)
+
+
+def _same(got, want):
+    want = np.asarray(want)
+    assert isinstance(got, torch.Tensor) and tuple(got.shape) == want.shape
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _jax_gemm(against, *args, **kw):
+    if against == "pallas":
+        return jops.int8_gemm(*args, **kw)
+    w, x, bias, shift, res = (list(args) + [None, 0, None])[:5]
+    return jref.int8_gemm_ref(w, x, bias, shift, kw.get("relu", False), res)
+
+
+# ---------------------------------------------------------------- GEMM ----
+
+
+@pytest.mark.parametrize("n,m,p", [(1, 1, 1), (7, 13, 5), (64, 64, 64), (100, 200, 72),
+                                   (129, 257, 130), (256, 64, 512)])
+@pytest.mark.parametrize("against", ["pallas", "oracle"])
+def test_int8_gemm_matches_jax(n, m, p, against):
+    rng = np.random.default_rng(n * 1000 + m)
+    w, x = _i8(rng, (n, m)), _i8(rng, (m, p))
+    got = ops.int8_gemm(torch.from_numpy(w), torch.from_numpy(x))
+    assert got.dtype == torch.int8
+    _same(got, _jax_gemm(against, jnp.asarray(w), jnp.asarray(x)))
+
+
+@pytest.mark.parametrize("shift", [-8, -2, 0, 1, 4, 9, 15, 16, 31])
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("against", ["pallas", "oracle"])
+def test_int8_gemm_epilogue_shift_relu(shift, relu, against):
+    rng = np.random.default_rng(5)
+    w, x = _i8(rng, (48, 96)), _i8(rng, (96, 32))
+    bias = rng.integers(-5000, 5000, (48,), dtype=np.int32)
+    got = ops.int8_gemm(torch.from_numpy(w), torch.from_numpy(x), torch.from_numpy(bias),
+                        shift=torch.tensor(shift, dtype=torch.int32), relu=relu)
+    _same(got, _jax_gemm(against, jnp.asarray(w), jnp.asarray(x), jnp.asarray(bias),
+                         jnp.int32(shift), relu=relu))
+
+
+@pytest.mark.parametrize("against", ["pallas", "oracle"])
+def test_int8_gemm_residual_fusion(against):
+    rng = np.random.default_rng(6)
+    w, x, res = _i8(rng, (64, 64)), _i8(rng, (64, 48)), _i8(rng, (64, 48))
+    got = ops.int8_gemm(torch.from_numpy(w), torch.from_numpy(x), shift=8,
+                        residual=torch.from_numpy(res), relu=True)
+    _same(got, _jax_gemm(against, jnp.asarray(w), jnp.asarray(x), None, 8,
+                         jnp.asarray(res), relu=True))
+    assert int(got.min()) >= 0
+
+
+@pytest.mark.parametrize("bias", [None, 2 ** 31 - 1])
+@pytest.mark.parametrize("against", ["pallas", "oracle"])
+def test_int8_gemm_overflow_regime(bias, against):
+    """Worst-case int8 x int8 over M=512, and a bias that makes the int32
+    sum wrap, as XLA's does."""
+    w, x = np.full((8, 512), -128, np.int8), np.full((512, 8), -128, np.int8)
+    b = None if bias is None else np.full((8,), bias, np.int32)
+    got = ops.int8_gemm(torch.from_numpy(w), torch.from_numpy(x),
+                        None if b is None else torch.from_numpy(b), shift=16)
+    _same(got, _jax_gemm(against, jnp.asarray(w), jnp.asarray(x),
+                         None if b is None else jnp.asarray(b), 16))
+
+
+# -------------------------------------------------------------- IM2COL ----
+
+
+@pytest.mark.parametrize("h,w,c,k,stride,pad", [
+    (8, 8, 3, 3, 1, 1), (8, 8, 4, 3, 2, 1), (16, 16, 8, 5, 2, 2), (7, 9, 2, 3, 1, 0),
+    (224, 224, 3, 7, 2, 3),     # ResNet conv1
+    (4, 4, 1, 1, 1, 0), (10, 10, 3, 1, 2, 0),
+])
+@pytest.mark.parametrize("against", ["pallas", "oracle"])
+def test_im2col_matches_jax(h, w, c, k, stride, pad, against):
+    img = _i8(np.random.default_rng(h + c), (h, w, c))
+    if against == "pallas":
+        want = jops.im2col(jnp.asarray(img), k, stride, pad)
+    else:
+        want = jref.im2col_ref(jnp.asarray(img), k, stride, pad)
+    got = ops.im2col(torch.from_numpy(img), k, stride, pad)
+    _same(got, want)
+    _same(ops.im2col_ref(torch.from_numpy(img), k, stride, pad), want)
+
+
+@pytest.mark.parametrize("dtype", ["int8", "float32", "bfloat16"])
+def test_im2col_dtype_sweep(dtype):
+    x = np.random.default_rng(2).standard_normal((6, 6, 2)).astype(np.float32) * 40
+    jdt = {"int8": jnp.int8, "float32": jnp.float32, "bfloat16": jnp.bfloat16}[dtype]
+    tdt = {"int8": torch.int8, "float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
+    want = np.asarray(jops.im2col(jnp.asarray(x).astype(jdt), 3, 1, 1), np.float32)
+    got = ops.im2col(torch.from_numpy(x).to(tdt), 3, 1, 1)
+    assert got.dtype == tdt
+    np.testing.assert_array_equal(got.to(torch.float32).numpy(), want)
+
+
+# ------------------------------------------------------- conv-as-GEMM -----
+
+
+@pytest.mark.parametrize("h,cin,cout,k,stride,pad,relu", [
+    (8, 3, 16, 3, 1, 1, True),
+    (8, 4, 8, 3, 2, 1, False),
+    (9, 2, 4, 1, 1, 0, True),
+    (10, 3, 6, 1, 2, 0, False),   # k=1 s=2: the PU's strided linear path
+    (12, 2, 4, 5, 2, 2, True),
+])
+@pytest.mark.parametrize("residual", [False, True])
+def test_conv2d_int8_matches_jax(h, cin, cout, k, stride, pad, relu, residual):
+    rng = np.random.default_rng(h * cin + cout)
+    img, w4d = _i8(rng, (h, h, cin)), _i8(rng, (k, k, cin, cout))
+    bias = rng.integers(-300, 300, (cout,), dtype=np.int32)
+    oh = (h + 2 * pad - k) // stride + 1
+    res = _i8(rng, (oh, oh, cout)) if residual else None
+    kw = dict(stride=stride, pad=pad, shift=7, relu=relu)
+    jres = None if res is None else jnp.asarray(res)
+    tres = None if res is None else torch.from_numpy(res)
+    want = jops.conv2d_int8(jnp.asarray(img), jnp.asarray(w4d), jnp.asarray(bias), k=k,
+                            residual=jres, **kw)
+    _same(ops.conv2d_int8(torch.from_numpy(img), torch.from_numpy(w4d), torch.from_numpy(bias),
+                          k=k, residual=tres, **kw), want)
+    _same(ops.conv2d_int8_ref(torch.from_numpy(img), torch.from_numpy(w4d), torch.from_numpy(bias),
+                              residual=tres, **kw),
+          jref.conv2d_int8_ref(jnp.asarray(img), jnp.asarray(w4d), jnp.asarray(bias),
+                               residual=jres, **kw))
+
+
+# ----------------------------------------------------------------- NIU ----
+
+
+def _niu_case(against, q, exp, seed, **kw):
+    fn = jniu.niu_refresh if against == "pallas" else jniu.niu_refresh_ref
+    want = fn(jnp.asarray(q), jnp.int32(exp), seed, **kw)
+    got = ops.niu_refresh(torch.from_numpy(q), torch.tensor(exp, dtype=torch.int32), seed, **kw)
+    _same(got, want)
+    return got
+
+
+@pytest.mark.parametrize("r,c", [(256, 256), (300, 200), (64, 512), (100, 100)])
+@pytest.mark.parametrize("seed", [7, -5])
+@pytest.mark.parametrize("against", ["pallas", "oracle"])
+def test_niu_matches_jax(r, c, seed, against):
+    _niu_case(against, _i8(np.random.default_rng(r + c), (r, c), lo=-127), -4, seed)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(prog_noise_scale=0.0, read_noise_scale=0.0, drift=1.0),     # identity
+    dict(prog_noise_scale=0.0, read_noise_scale=0.0, drift=0.8),     # drift alone
+    dict(prog_noise_scale=2.0, read_noise_scale=1.0),                # saturation
+    dict(prog_noise_scale=0.1, read_noise_scale=0.0),
+], ids=["zero_noise", "drift", "saturation", "prog_only"])
+def test_niu_options_match_jax(kw):
+    q = _i8(np.random.default_rng(8), (96, 96), lo=-127)
+    got = _niu_case("oracle", q, -2, 5, **kw).numpy()
+    if kw.get("drift") == 1.0:
+        np.testing.assert_array_equal(got, q)
+    assert got.min() >= -128 and got.max() <= 127
+
+
+def test_niu_deterministic_per_seed():
+    q = torch.from_numpy(_i8(np.random.default_rng(9), (128, 128), lo=-127))
+    e = torch.tensor(-3, dtype=torch.int32)
+    a, b, c = (ops.niu_refresh(q, e, s) for s in (42, 42, 43))
+    assert torch.equal(a, b) and not torch.equal(a, c)
+
+
+def test_niu_noise_statistics():
+    """Perturbation std in q-units ~ scale*(0.25|q| + 0.05 qmax)."""
+    q = torch.full((512, 512), 64, dtype=torch.int8)
+    out = ops.niu_refresh(q, torch.tensor(0, dtype=torch.int32), 1,
+                          prog_noise_scale=0.1, read_noise_scale=0.0)
+    err = out.numpy().astype(np.int32) - 64
+    expected = np.sqrt((0.1 * (0.25 * 64 + 0.05 * 64)) ** 2 + 1 / 12)
+    assert err.std() == pytest.approx(expected, rel=0.1)
+    assert abs(err.mean()) < 0.1
