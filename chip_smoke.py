@@ -10,27 +10,36 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``nvcc`` per source, all started together.
 2. Kernel phase: each decode kernel against its plain PyTorch version on
    the card at olmo-1b shapes (B=8, d 2048, 16 heads x 128, d_ff 8192,
-   Sk 584), every attention mask case; then CUDA-event times of the
-   kernel, the plain version and one PyTorch library call computing the
-   same function, with the L2 flushed before each timed call.
+   Sk 584), every attention mask case; ``fused_mlp`` called twice must
+   give equal bits; then CUDA-event times of the kernel, the plain
+   version and one PyTorch library call computing the same function,
+   with the L2 flushed before each timed call (``Timer``), and of each
+   launch of the split-K GEMV alone (the MLP's two, the attention's
+   output projection).
 2a. PU kernel phase, on a seeded full-width ResNet-50 (224x224x3 int8
    image): ``int8_gemm`` and ``im2col`` against their plain versions bit
-   for bit at the operands of every call of one forward (53 GEMMs, 17
-   im2col; im2col also in bf16 and float32), plus the GEMM epilogue
-   cases (bias on/off, shift -3/0/7/16, ReLU, residual);
+   for bit at the operands of every call of one forward (53 GEMMs with
+   the weights as the forward's (M, N) view and as (N, M), each called
+   twice for equal bits; 17 im2col, also in bf16 and float32), plus the
+   GEMM epilogue cases (bias on/off, shift -3/0/7/16, ReLU, residual) and
+   split-K cases (``SPLIT_K_CASES``: P = 1, 7, 49, a bias that wraps the
+   int32 sum, both layouts);
    ``niu_refresh`` on every weight matrix with three seeds, |diff| <= 1
    on at most ``NIU_MAX_RATE`` of the elements.  Times of kernel, plain
    version and library yardstick (``torch._int_mm`` + the epilogue in
    torch ops; the ``unfold`` chain; none for the NIU's RNG), each
-   distinct call timed cold and summed over one forward (one NIU round).
+   distinct call timed cold and summed over one forward (one NIU round);
+   one line per distinct GEMM shape with its tile, split, time,
+   ``torch._int_mm`` time and bound.
 2b. ResNet phase: launch counts zeroed just before one forward and read
    just after (53 GEMMs, 17 im2col); the int8 trunk equal bit for bit
    to the CPU's plain forward on the same weights, logits within
    ``RESNET_RTOL`` / ``RESNET_ATOL`` with the same top-5; the float
    reference correlating above 0.7; median ms per image over
    ``FORWARDS`` forwards; a torch.profiler trace of one forward (device
-   busy, idle share, top device ops); one NIU round over every weight
-   matrix, its launches counted.
+   busy, idle share, top device ops, fewer copy kernels than GEMMs: the
+   weights are not re-laid out); one NIU round over every weight matrix,
+   its launches counted.
 3. Model step: full-width olmo-1b prefill + one decode step with and
    without the kernels; logits finite and within ``LOGIT_ATOL``.
 4. Serve phase: ``repro_torch.launch.serve``'s engine at full width,
@@ -100,6 +109,8 @@ REPLACES = {
 # classes, seeded weights; 53 convolutions, 17 of them through im2col.
 RESNET, IMAGE, N_GEMM, N_IM2COL = 50, 224, 53, 17
 FORWARDS = 30               # timed forwards; the median is kept
+# split-K int8_gemm shapes (P, N, M) beside the forward's: P = 1, 7, 49
+SPLIT_K_CASES = ((1, 512, 4608), (7, 2048, 512), (49, 512, 4608), (49, 2048, 1024), (7, 100, 2304))
 NIU_SEEDS = (0, 12345, -987654321)
 NIU_MAX_RATE = 1e-4         # NIU kernel vs plain: |diff| <= 1 on at most this share
 NIU_OPS = 43                # float32 operations per element (two Gaussians + the noise model)
@@ -275,6 +286,26 @@ def kernel_phase(torch, timer, rates):
         got = decode.fused_mlp(x, wu, gate, bs[0], wd, bs[1], act=act)
         want = ref.fused_mlp_ref(x, wu, gate, bs[0], wd, bs[1], act=act)
         err = max(err, close(got, want, f"fused_mlp {act} bias={bias}"))
+        again = decode.fused_mlp(x, wu, gate, bs[0], wd, bs[1], act=act)
+        assert torch.equal(got, again), f"fused_mlp {act} bias={bias}: two calls differ"
+    print("[kernel] fused_mlp: two calls give equal bits in all four (act, bias) cases", flush=True)
+    # each of its two launches alone, and the attention's output projection
+    h = torch.empty((B, FF), dtype=bf, device="cuda")
+    y = torch.empty((B, D), dtype=bf, device="cuda")
+    ctx = rnd(B, HQ * HD)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for what, args, nb in (
+        ("fused_mlp launch 1 (gate/up + swiglu)", (x, wg, wu, bu, h, 0), nbytes(x, wg, wu, bu, h)),
+        ("fused_mlp launch 2 (down + bias)", (h, wd, None, bd, y, -1), nbytes(h, wd, bd, y)),
+        ("fused_decode_attention launch 2 (ctx @ wo + bo)", (ctx, wo, None, bo, y, -1),
+         nbytes(ctx, wo, bo, y)),
+    ):
+        plan = decode.gemv_plan(args[4].shape[1], args[0].shape[1], sms)
+        t = timer(lambda a=args, w=what: decode._gemv(*a, w))
+        b_ms = bound(rates, nb)[0]
+        print(f"[kernel] {what}: kernel_ms={t} bound_ms={b_ms} ({nb / t / 1e9} TB/s) "
+              f"grid {plan.tiles} column tiles x {plan.split} splits of {plan.kt_per} k-tiles",
+              flush=True)
     t_bound, by = bound(rates, nbytes(x, wu, wg, wd) + 2 * B * D, 2 * B * D * FF * 3)
     rows["fused_mlp"] = dict(
         max_abs_err=err,
@@ -305,9 +336,9 @@ def resnet_setup(torch):
 
 def capture_pu_calls(torch, params, img):
     """One forward with ``ops.conv2d_int8`` wrapped: the operands that each
-    convolution hands to the GEMM (the patch matrix, the re-laid weights,
-    the residual as a (P, N) map) and to im2col, as the main path gives
-    them."""
+    convolution hands to the GEMM (the patch matrix, the weights as their
+    (k*k*Cin, Cout) view, the residual as a (P, N) map) and to im2col, as
+    the main path gives them."""
     from repro_torch.kernels import ops
     from repro_torch.models import resnet
 
@@ -318,8 +349,7 @@ def capture_pu_calls(torch, params, img):
         if not (k == 1 and pad == 0):
             cols.append(dict(img=x, k=k, stride=stride, pad=pad))
         cout = w4d.shape[-1]
-        gemms.append(dict(a=ops.im2col(x, k, stride, pad),
-                          w=w4d.permute(3, 0, 1, 2).reshape(cout, -1).contiguous(),
+        gemms.append(dict(a=ops.im2col(x, k, stride, pad), w=w4d.reshape(-1, cout), layout="mn",
                           bias=bias, shift=shift, relu=relu,
                           residual=None if residual is None else residual.reshape(-1, cout)))
         return conv(x, w4d, bias, k=k, stride=stride, pad=pad, shift=shift, relu=relu,
@@ -337,7 +367,8 @@ def capture_pu_calls(torch, params, img):
 
 def per_call_times(timer, calls, key, fns):
     """Median ms of each function in ``fns`` for each distinct ``key`` of
-    ``calls``, summed over all calls (every call timed cold, alone)."""
+    ``calls``, summed over all calls (every call timed cold, alone); and
+    the times of each distinct key."""
     seen, totals = {}, {name: 0.0 for name in fns}
     for c in calls:
         k = key(c)
@@ -346,7 +377,7 @@ def per_call_times(timer, calls, key, fns):
             print(f"[pu]   {k}: " + " ".join(f"{n}={t}" for n, t in seen[k].items()), flush=True)
         for name in fns:
             totals[name] += seen[k][name]
-    return totals
+    return totals, seen
 
 
 def pu_kernel_phase(torch, timer, rates, params, img):
@@ -363,18 +394,21 @@ def pu_kernel_phase(torch, timer, rates, params, img):
 
     kgemm = importlib.import_module("repro_torch.kernels.int8_gemm")
     kim = importlib.import_module("repro_torch.kernels.im2col")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     gemms, cols = capture_pu_calls(torch, params, img)
     rows = {}
 
     # --- int8_gemm -----------------------------------------------------------
     def kernel(c, **over):
         c = {**c, **over}
-        return kgemm.int8_gemm_pn(c["a"], c["w"], c["bias"], c["shift"], c["residual"], relu=c["relu"])
+        return kgemm.int8_gemm_pn(c["a"], c["w"], c["bias"], c["shift"], c["residual"],
+                                  relu=c["relu"], w_layout=c["layout"])
 
     def plain(c, **over):
         c = {**c, **over}
         res = None if c["residual"] is None else c["residual"].T
-        return ref.int8_gemm_ref(c["w"], c["a"].T, c["bias"], c["shift"], c["relu"], res).T
+        w = c["w"].T if c["layout"] == "mn" else c["w"]
+        return ref.int8_gemm_ref(w, c["a"].T, c["bias"], c["shift"], c["relu"], res).T
 
     def exact(got, want, what):
         d = (got.to(torch.int32) - want.to(torch.int32)).abs().max().item()
@@ -383,11 +417,19 @@ def pu_kernel_phase(torch, timer, rates, params, img):
 
     err = 0
     for i, c in enumerate(gemms):
-        err = max(err, exact(kernel(c), plain(c), f"int8_gemm call {i} {tuple(c['a'].shape)}x{tuple(c['w'].shape)}"))
+        what = f"int8_gemm call {i} {tuple(c['a'].shape)}x{tuple(c['w'].shape)}"
+        got = kernel(c)
+        err = max(err, exact(got, plain(c), what))
+        assert torch.equal(got, kernel(c)), f"{what}: two calls differ"
+        nm = dict(w=c["w"].T.contiguous(), layout="nm")          # the public (N, M) layout
+        err = max(err, exact(kernel(c, **nm), got, f"{what} with (N, M) weights"))
+    print(f"[pu] int8_gemm: the {len(gemms)} forward calls equal the plain version bit for bit "
+          f"with the weights as the main path's (M, N) view and as (N, M), and a second call "
+          f"gives equal bits", flush=True)
     g = torch.Generator(device="cuda").manual_seed(3)
     cases = 0
     for c in (gemms[1], next(c for c in gemms if c["residual"] is not None)):
-        p, n = c["a"].shape[0], c["w"].shape[0]
+        p, n = c["a"].shape[0], c["w"].shape[1]
         bias = torch.randint(-2 ** 20, 2 ** 20, (n,), generator=g, device="cuda", dtype=torch.int32)
         res = torch.randint(-128, 128, (p, n), generator=g, device="cuda", dtype=torch.int8)
         for b in (None, bias):
@@ -398,14 +440,36 @@ def pu_kernel_phase(torch, timer, rates, params, img):
                         err = max(err, exact(kernel(c, **over), plain(c, **over), f"int8_gemm epilogue {over}"))
                         cases += 1
     c = gemms[0]
-    w, x = c["w"], c["a"].T.contiguous()
+    w, x = c["w"].T.contiguous(), c["a"].T.contiguous()
     err = max(err, exact(ops.int8_gemm(w, x, c["bias"], c["shift"], relu=True),
                          ref.int8_gemm_ref(w, x, c["bias"], c["shift"], True), "public int8_gemm"))
-    print(f"[pu] int8_gemm: {len(gemms)} forward calls and {cases} epilogue cases equal the plain "
-          f"version bit for bit", flush=True)
+    print(f"[pu] int8_gemm: {cases} epilogue cases equal the plain version bit for bit", flush=True)
+    # split-K, P in {1, 7, 49}, a bias that wraps the int32 sum, both layouts
+    split_cases = 0
+    for p, n, m in SPLIT_K_CASES:
+        a = torch.randint(-128, 128, (p, m), generator=g, device="cuda", dtype=torch.int8)
+        w = torch.randint(-128, 128, (m, n), generator=g, device="cuda", dtype=torch.int8)
+        bias = torch.randint(2 ** 31 - 2 ** 22, 2 ** 31 - 1, (n,), generator=g, device="cuda",
+                             dtype=torch.int32)
+        bias[1::2] *= -1
+        res = torch.randint(-128, 128, (p, n), generator=g, device="cuda", dtype=torch.int8)
+        plan = kgemm.gemm_plan(p, n, m, sms)
+        assert plan.split > 1, (p, n, m, plan)
+        for shift, r, relu in ((0, None, False), (16, res, True), (-3, res, False)):
+            c = dict(a=a, w=w, layout="mn", bias=bias, shift=shift, residual=r, relu=relu)
+            got, want = kernel(c), plain(c)
+            err = max(err, exact(got, want, f"int8_gemm split-K {(p, n, m)} {plan} shift={shift}"))
+            assert torch.equal(got, kernel(c)), f"split-K {(p, n, m)}: two calls differ"
+            err = max(err, exact(kernel(c, w=w.T.contiguous(), layout="nm"), want,
+                                 f"int8_gemm split-K {(p, n, m)} (N, M) weights"))
+            split_cases += 1
+    ps = sorted({p for p, _, _ in SPLIT_K_CASES})
+    print(f"[pu] int8_gemm: {split_cases} split-K cases (P in {ps}, "
+          f"a bias that wraps the int32 sum, both weight layouts) equal the plain version bit for "
+          f"bit, two calls equal", flush=True)
 
     def library(c):
-        a, w = c["a"], c["w"]
+        a, w = c["a"], (c["w"].T if c["layout"] == "mn" else c["w"])
         p, m = a.shape
         ap = torch.zeros((max(p, 17), -(-m // 8) * 8), dtype=torch.int8, device="cuda")
         wp = torch.zeros((w.shape[0], ap.shape[1]), dtype=torch.int8, device="cuda")
@@ -423,17 +487,32 @@ def pu_kernel_phase(torch, timer, rates, params, img):
     libs = [library(c) for c in gemms]
     exact(libs[1](), kernel(gemms[1]), "torch._int_mm yardstick")
     lib_of = {id(c): f for c, f in zip(gemms, libs)}
-    times = per_call_times(
-        timer, gemms,
-        lambda c: (tuple(c["a"].shape), tuple(c["w"].shape), c["residual"] is not None, c["relu"]),
+    def gemm_key(c):
+        return tuple(c["a"].shape), tuple(c["w"].shape), c["residual"] is not None, c["relu"]
+
+    times, seen = per_call_times(
+        timer, gemms, gemm_key,
         dict(ms=kernel, plain_ms=plain, library_ms=lambda c: lib_of[id(c)](),
              int_mm_alone_ms=lambda c: lib_of[id(c)].int_mm()),
     )
     print(f"[pu] int8_gemm: torch._int_mm alone (no epilogue) {times.pop('int_mm_alone_ms')} ms "
           f"over the forward's calls", flush=True)
-    nb = sum(nbytes(c["a"], c["w"], c["bias"], c["residual"]) + c["a"].shape[0] * c["w"].shape[0]
-             for c in gemms)
-    ops_ = sum(2 * c["a"].shape[0] * c["w"].shape[0] * c["a"].shape[1] for c in gemms)
+
+    def gemm_bytes(c):
+        p, n = c["a"].shape[0], c["bias"].shape[0]
+        return nbytes(c["a"], c["w"], c["bias"], c["residual"]) + p * n
+
+    for k, t in seen.items():      # one line per distinct GEMM of the forward
+        c = next(c for c in gemms if gemm_key(c) == k)
+        (p, m), n = c["a"].shape, c["bias"].shape[0]
+        plan = kgemm.gemm_plan(p, n, m, sms)
+        b_ms, b_by = bound(rates, gemm_bytes(c), 2 * p * n * m, "int8")
+        print(f"[pu] int8_gemm shape P={p} N={n} M={m} residual={k[2]} calls="
+              f"{sum(gemm_key(x) == k for x in gemms)}: tile {kgemm.GEMM_TILE} split {plan.split} "
+              f"({plan.kt_per} k-tiles each, {plan.blocks} blocks) kernel_ms={t['ms']} "
+              f"int_mm_alone_ms={t['int_mm_alone_ms']} bound_ms={b_ms} ({b_by})", flush=True)
+    nb = sum(gemm_bytes(c) for c in gemms)
+    ops_ = sum(2 * c["a"].shape[0] * c["bias"].shape[0] * c["a"].shape[1] for c in gemms)
     t_bound, by = bound(rates, nb, ops_, "int8")
     rows["int8_gemm"] = dict(max_abs_err=err, bound_ms=t_bound, bound_by=by, **times)
     print(f"[pu] int8_gemm over one forward's {len(gemms)} calls: {nb} bytes, {ops_} int8 operations", flush=True)
@@ -454,7 +533,7 @@ def pu_kernel_phase(torch, timer, rates, params, img):
         return xp.unfold(0, k, st).unfold(1, k, st).permute(0, 1, 3, 4, 2).reshape(-1, k * k * x.shape[2])
 
     assert torch.equal(unfold(cols[1]), kim.im2col(cols[1]["img"], cols[1]["k"], cols[1]["stride"], cols[1]["pad"]))
-    times = per_call_times(
+    times, _ = per_call_times(
         timer, cols, lambda c: (tuple(c["img"].shape), c["k"], c["stride"], c["pad"]),
         dict(ms=lambda c: kim.im2col(c["img"], c["k"], c["stride"], c["pad"]),
              plain_ms=lambda c: ref.im2col_ref(c["img"], c["k"], c["stride"], c["pad"]),
@@ -495,7 +574,7 @@ def pu_kernel_phase(torch, timer, rates, params, img):
     niu_kw = dict(prog_noise_scale=0.1, read_noise_scale=0.02, drift=1.0)
     kniu.launch(calls[0]["q"], calls[0]["out"], calls[0]["scale"], calls[0]["seed"], calls[0]["w_max"], **niu_kw)
     assert torch.equal(calls[0]["out"], ops.niu_refresh(calls[0]["q"], calls[0]["e"], 1)), "niu launch alone"
-    times = per_call_times(
+    times, _ = per_call_times(
         timer, calls, lambda c: tuple(c["q"].shape),
         dict(ms=lambda c: kniu.launch(c["q"], c["out"], c["scale"], c["seed"], c["w_max"], **niu_kw),
              plain_ms=lambda c: ops.niu_refresh_ref(c["q"], c["e"], 1),
@@ -580,6 +659,14 @@ def resnet_phase(torch, rates, params, img):
           f"({ms} ms) = {busy / 1e3 / ms}", flush=True)
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
         print(f"[profile]   {us / 1e3} ms  {name[:110]}", flush=True)
+    # the GEMM reads the weights as they lie: no re-layout copy per conv
+    cuda = torch.autograd.DeviceType.CUDA
+    copies = [e.name for e in prof.events() if e.device_type == cuda and "copy" in e.name.lower()]
+    print(f"[profile] copy kernels in the forward: {len(copies)} launches, "
+          f"{sum(us for n, us in by_name.items() if 'copy' in n.lower()) / 1e3} ms "
+          f"(the weight re-layout took {N_GEMM} of them before the GEMM read the (M, N) view)",
+          flush=True)
+    assert len(copies) < N_GEMM, copies
 
     mats = niu_matrices(params)
     common.reset_launches()                     # the NIU round's own count

@@ -44,15 +44,16 @@ SOURCES: Dict[str, Tuple[tuple, dict]] = {
             _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
             _I, _I, _I, _I, _I, _I, _F, _P,
         ),
-        "repro_gemv_bias": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+        "repro_gemv": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _I, _P),
         "repro_decode_attention": (
             _P, _P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _F, _P,
             _I, _I, _I, _I, _I, _P,
         ),
-        "repro_mlp_up": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     }),
     "pu": ((), {
-        "repro_int8_gemm": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+        "repro_int8_gemm": (
+            _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+        ),
         "repro_im2col": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     }),
     "niu": (("-fmad=false",), {

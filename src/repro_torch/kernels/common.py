@@ -9,7 +9,7 @@ caller asks for it.
 """
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
@@ -59,6 +59,28 @@ def raise_on(err: int, name: str):
 def cuda_stream() -> int:
     """The current CUDA stream as the pointer a C entry point takes."""
     return torch.cuda.current_stream().cuda_stream
+
+
+# Split-K kernels' scratch, by (kernel, device, stream): a workspace for
+# the split partials and one counter per output tile.
+_SCRATCH: Dict[Tuple[str, torch.device, int], Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def split_k_scratch(kernel: str, dev: torch.device, stream: int, numel: int,
+                    dtype: torch.dtype, counters: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``kernel``'s workspace (at least ``numel`` of ``dtype``) and tile
+    counters (at least ``counters`` int32) on ``dev`` for launches on
+    ``stream``: zeroed when allocated, grown when a call needs more, else
+    reused.  The kernels leave the counters (and the GEMM its int32 sums)
+    at zero, so no call pays for a memset; calls on one stream run in
+    order, so they can share them."""
+    ws, cnt = _SCRATCH.get((kernel, dev, stream), (None, None))
+    if ws is None or ws.numel() < numel:
+        ws = torch.zeros(max(numel, 1), dtype=dtype, device=dev)
+    if cnt is None or cnt.numel() < counters:
+        cnt = torch.zeros(max(counters, 1), dtype=torch.int32, device=dev)
+    _SCRATCH[kernel, dev, stream] = ws, cnt
+    return ws, cnt
 
 
 # Every kernel wrapper carries ``launches``, a plain integer that counts

@@ -19,10 +19,11 @@
 // under the ~295 the H100 needs before arithmetic matters.  All three are
 // bound by the bytes they read from HBM.  The Pallas kernels walk a
 // sequential grid on one TensorCore and carry sums in VMEM scratch from one
-// grid step to the next; Hopper's blocks run in parallel and in no order,
-// so here the sequential axis becomes a loop inside a block and every
-// cross-block reduction is avoided by giving each block whole output
-// columns.  No wgmma or TMA yet: these are the simple, correct versions.
+// grid step to the next; Hopper's blocks run in parallel and in no order.
+// fused_qkv and the attention give each block whole output columns (or a
+// head), so the sequential axis becomes a loop inside a block.  The GEMV
+// behind fused_mlp and the attention's output projection splits the
+// reduction across blocks instead, and sums the partials in a fixed order.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -66,8 +67,8 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// ------------------------------------------------------------------ GEMV --
-// out[b * kMaxNC + c] = sum_k x[b, k] * w[k, n0 + c] in float32, for b < B
+// ------------------------------------------------------ CUDA-core GEMV tile --
+// fused_qkv's product: out[b * kMaxNC + c] = sum_k x[b, k] * w[k, n0 + c] in float32, for b < B
 // and c < nc.  w is (K, N) row-major, the JAX package's (in, out) layout.
 //
 // The block's 256 threads split into nc/8 column chunks (8 bf16 = one
@@ -184,27 +185,6 @@ qkv_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wq,
   }
 }
 
-// ----------------------------------------------------- GEMV + bias (wo/down) --
-// y[b, n] = bf16(bf16(sum_k x[b, k] w[k, n]) + bias[n]): the output
-// projection of fused_decode_attention and the down projection of
-// fused_mlp.  Bound: the bytes of w.  One block owns nc columns.
-template <int B>
-__global__ void __launch_bounds__(kThreads)
-gemv_bias_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                 const bf16* __restrict__ bias, bf16* __restrict__ y,
-                 int K, int N, int nc) {
-  __shared__ float red[kThreads * 8];
-  __shared__ float out[kMaxB * kMaxNC];
-  const int n0 = blockIdx.x * nc;
-  gemv_tile<B>(x, w, K, N, n0, nc, red, out);
-  for (int i = threadIdx.x; i < B * nc; i += kThreads) {
-    const int b = i / nc, c = i % nc;
-    float val = round_bf16(out[b * kMaxNC + c]);
-    if (bias != nullptr) val = round_bf16(val + bf2f(bias[n0 + c]));
-    y[(size_t)b * N + n0 + c] = __float2bfloat16(val);
-  }
-}
-
 // ---------------------------------------------------- fused decode attention --
 // Replaces repro/kernels/decode.py::fused_decode_attention
 // (_decode_attn_kernel), launch 1 of 2.
@@ -215,7 +195,7 @@ gemv_bias_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
 // in float32 registers.  p is rounded to bf16 before the PV product and
 // the sum is divided by max(l, 1e-30) at the end, as the TPU kernel does.
 // The warps' partial states are merged through shared memory, and ctx is
-// written in bf16 to a (B, Hq*hd) scratch that gemv_bias_kernel turns into
+// written in bf16 to a (B, Hq*hd) scratch that gemv_kernel turns into
 // ctx @ wo + bo.  Only B*Hkv blocks are in flight (128 at olmo-1b): a
 // split of Sk across blocks (flash-decoding) is later work.
 template <int G, int HD>
@@ -359,46 +339,231 @@ attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// -------------------------------------------------------------- fused MLP --
-// Replaces repro/kernels/decode.py::fused_mlp (_mlp_kernel), launch 1 of 2.
-// Bound: the bytes of w_gate, w_up and w_down (100.7 MB a layer at
-// olmo-1b).  Blocks over d_ff column slabs compute g = x @ w_gate (or
-// w_up when ungated) and up = x @ w_up, each rounded to bf16, add b_up,
-// apply the activation, and write h (B, d_ff) in bf16; launch 2
-// (gemv_bias_kernel) computes h @ w_down + b_down.  The TPU kernel kept h
-// in VMEM and summed the down projection across its sequential grid; here
-// that would need a cross-block reduction (atomics, and a result that
-// depends on their order).  h is 128 KB at B=8 -- it stays in the 50 MB
-// L2 between the two launches, so writing it costs no HBM traffic worth
-// counting, and the result is deterministic.
-// act: 0 swiglu, 1 gelu (tanh form, as jax.nn.gelu), 2 squared relu.
-template <int B>
-__global__ void __launch_bounds__(kThreads)
-mlp_up_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wg,
-              const bf16* __restrict__ wu, const bf16* __restrict__ bu,
-              bf16* __restrict__ h, int K, int F, int nc, int act, int gated) {
-  __shared__ float red[kThreads * 8];
-  __shared__ float og[kMaxB * kMaxNC];
-  __shared__ float ou[kMaxB * kMaxNC];
-  const int n0 = blockIdx.x * nc;
-  gemv_tile<B>(x, gated ? wg : wu, K, F, n0, nc, red, og);
-  if (gated) gemv_tile<B>(x, wu, K, F, n0, nc, red, ou);
-  for (int i = threadIdx.x; i < B * nc; i += kThreads) {
-    const int b = i / nc, c = i % nc;
-    float g = round_bf16(og[b * kMaxNC + c]);
-    if (bu != nullptr) g = round_bf16(g + bf2f(bu[n0 + c]));
-    float hv;
-    if (act == 0) {
-      const float sg = round_bf16(g / (1.0f + expf(-g)));
-      hv = round_bf16(sg * round_bf16(ou[b * kMaxNC + c]));
-    } else if (act == 1) {
-      const float inner = 0.7978845608028654f * (g + 0.044715f * g * g * g);
-      hv = round_bf16(0.5f * g * (1.0f + tanhf(inner)));
-    } else {
-      const float r = fmaxf(g, 0.f);
-      hv = round_bf16(r * r);
+// ------------------------------------------------ split-K tensor-core GEMV --
+// Replaces repro/kernels/decode.py::fused_mlp (_mlp_kernel) in two
+// launches (gate/up + activation into h, then h @ w_down + b_down), and
+// is launch 2 of fused_decode_attention (ctx @ wo + bo).
+// y[b, n] = epilogue(sum_k x[b, k] w[k, n]) for b < B <= 8.  The TPU
+// kernel kept h in VMEM; here h (128 KB at B=8) stays in the 50 MB L2
+// between the two launches.
+// Bound: the bytes of w (33.6 MB for w_down at olmo-1b).  The design is
+// about streaming them at the memory's rate from every SM:
+// - wide tiles: a block owns 128 output columns and streams weight tiles
+//   of 64 k-rows x 128 columns (256 contiguous bytes a row, whole sectors)
+//   through a ring of 4 stages of 16-byte cp.async copies, rows swizzled
+//   (16-byte chunk c of row r stored at c ^ (r & 7)) so ldmatrix is free
+//   of bank conflicts;
+// - tensor cores: the block computes the transpose, out^T (N, B) = W^T
+//   (N, K) . x^T (K, B), with mma.sync m16n8k16 bf16 -> f32: the weight
+//   tile is the A operand, read k-major from the row-major (k, n) tile by
+//   ldmatrix.trans; x^T is the B operand, its 8 columns the decode rows
+//   (rows past B read as zero), from a slice of x kept in shared memory;
+// - split-K: the grid's y axis splits the k-tiles as finely as one wave
+//   of one block per SM allows, so every SM streams an equal share
+//   (repro_torch/kernels/decode.py::gemv_plan; 128 blocks of 16 k-tiles
+//   at olmo-1b's MLP).  Each block writes its f32 partial to a
+//   workspace; the last block of a column tile to arrive (a per-tile
+//   counter, __threadfence + atomicAdd) sums the partials in split
+//   order, so the result does not depend on which block finishes last,
+//   and sets the counter back to 0.
+// The epilogue keeps the contract: one rounding to bf16 of the f32 sum,
+// then the bias in bf16; for the MLP's up pass (act >= 0) the activation
+// in f32 with the rounding points of repro/kernels/decode.py::_mlp_kernel.
+// With w1 (swiglu only), each block streams the tiles of w0 (gate) and w1
+// (up) in turn and keeps both sums.
+// act: -1 none (bias only), 0 swiglu, 1 gelu (tanh form, as
+// jax.nn.gelu), 2 squared relu.
+constexpr int kGvThreads = 128;              // 4 warps
+constexpr int kGvN = 128;                    // output columns of a block
+constexpr int kGvMT = kGvN / (kGvThreads / 32) / 16;   // m16 column tiles of a warp
+constexpr int kGvK = 64;                     // weight rows of a stage
+constexpr int kGvStages = 4;
+constexpr int kGvTile = kGvK * kGvN * 2;     // bytes of a stage
+constexpr int kGvFrag = 4 * kGvMT;           // f32 sums per thread per matrix
+constexpr int kGvMaxKt = 32;                 // k-tiles a split may take (decode.py GEMV_MAX_KT)
+constexpr int kMaxDevices = 64;              // devices whose kernel attributes are remembered
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; bytes < 16 zero-fill the rest.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t addr, uint32_t* r) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// c (16 x 8, f32) += a (16 x 16, bf16, row) * b (16 x 8, bf16, col)
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Grid (column tiles, splits); kt_per k-tiles per split.  Shared memory:
+// the ring, then the block's slice of x as B rows of xs_stride elements.
+// With more than one split, ws holds tiles * splits * nmat * 1024 floats
+// and counters one int per column tile (zero on entry, zero on exit).
+__global__ void __launch_bounds__(kGvThreads)
+gemv_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w0,
+            const bf16* __restrict__ w1, const bf16* __restrict__ bias,
+            bf16* __restrict__ y, int B, int K, int N, int kt_per, int xs_stride,
+            float* __restrict__ ws, int* __restrict__ counters, int act) {
+  extern __shared__ __align__(16) uint8_t gv_smem[];
+  __shared__ int s_last;
+  bf16* xs = reinterpret_cast<bf16*>(gv_smem + kGvStages * kGvTile);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int nmat = w1 != nullptr ? 2 : 1;
+  const int tile = blockIdx.x, n0 = tile * kGvN;
+  const int kt0 = blockIdx.y * kt_per;
+  const int nkt = min((K + kGvK - 1) / kGvK, kt0 + kt_per) - kt0;
+  const int tiles = nkt * nmat;   // weight tiles this block streams
+
+  // this block's slice of x, in the first copy group
+  for (int q = tid; q < B * nkt * (kGvK / 8); q += kGvThreads) {
+    const int b = q / (nkt * (kGvK / 8)), c = q % (nkt * (kGvK / 8));
+    const int k = kt0 * kGvK + c * 8;
+    const bool ok = k < K;
+    cp_async16(smem_u32(xs + b * xs_stride + c * 8), ok ? x + (size_t)b * K + k : x,
+               ok ? 16 : 0);
+  }
+  auto load = [&](int i) {   // weight tile i -> ring slot i % kGvStages
+    const bf16* w = (i % nmat) ? w1 : w0;
+    const int k0 = (kt0 + i / nmat) * kGvK;
+    const uint32_t slot = smem_u32(gv_smem + (i % kGvStages) * kGvTile);
+#pragma unroll
+    for (int j = 0; j < kGvTile / 16 / kGvThreads; ++j) {
+      const int q = tid + j * kGvThreads;
+      const int r = q >> 4, c = q & 15;
+      const bool ok = k0 + r < K && n0 + c * 8 < N;
+      cp_async16(slot + r * (kGvN * 2) + ((c ^ (r & 7)) << 4),
+                 ok ? w + (size_t)(k0 + r) * N + n0 + c * 8 : w, ok ? 16 : 0);
     }
-    h[(size_t)b * F + n0 + c] = __float2bfloat16(hv);
+  };
+
+  float acc0[kGvFrag], acc1[kGvFrag];
+#pragma unroll
+  for (int f = 0; f < kGvFrag; ++f) acc0[f] = acc1[f] = 0.f;
+
+#pragma unroll
+  for (int i = 0; i < kGvStages - 1; ++i) {
+    if (i < tiles) load(i);
+    cp_async_commit();
+  }
+  for (int i = 0; i < tiles; ++i) {
+    cp_async_wait<kGvStages - 2>();
+    __syncthreads();
+    if (i + kGvStages - 1 < tiles) load(i + kGvStages - 1);
+    cp_async_commit();
+    const uint32_t slot = smem_u32(gv_smem + (i % kGvStages) * kGvTile);
+    const bf16* xk = xs + g * xs_stride + (i / nmat) * kGvK + 2 * t;
+    const bool second = (i % nmat) != 0;
+#pragma unroll
+    for (int ks = 0; ks < kGvK / 16; ++ks) {
+      uint32_t bx[2] = {0u, 0u};
+      if (g < B) {
+        bx[0] = *reinterpret_cast<const uint32_t*>(xk + ks * 16);
+        bx[1] = *reinterpret_cast<const uint32_t*>(xk + ks * 16 + 8);
+      }
+#pragma unroll
+      for (int mt = 0; mt < kGvMT; ++mt) {
+        const int j = lane >> 3;
+        const int kr = ks * 16 + (j >> 1) * 8 + (lane & 7);
+        const int c = (warp * kGvMT + mt) * 2 + (j & 1);   // 16-byte chunk of the row
+        uint32_t a[4];
+        ldmatrix_x4_trans(slot + kr * (kGvN * 2) + ((c ^ (kr & 7)) << 4), a);
+        if (second) mma_bf16(acc1 + 4 * mt, a, bx);
+        else mma_bf16(acc0 + 4 * mt, a, bx);
+      }
+    }
+  }
+
+  if (gridDim.y > 1) {   // split-K: publish this block's partial; the last one sums
+    const int S = gridDim.y;
+    float* mine = ws + (size_t)(tile * S + blockIdx.y) * nmat * (kGvFrag * kGvThreads);
+#pragma unroll
+    for (int f = 0; f < kGvFrag; ++f) {
+      __stcg(mine + f * kGvThreads + tid, acc0[f]);
+      if (nmat == 2) __stcg(mine + (kGvFrag + f) * kGvThreads + tid, acc1[f]);
+    }
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) s_last = atomicAdd(counters + tile, 1) == S - 1;
+    __syncthreads();
+    if (!s_last) return;
+    __threadfence();
+    // the partials in split order (deterministic), four splits' loads in
+    // flight at a time
+    float sum0[kGvFrag], sum1[kGvFrag];
+#pragma unroll
+    for (int f = 0; f < kGvFrag; ++f) sum0[f] = sum1[f] = 0.f;
+    for (int z0 = 0; z0 < S; z0 += 4) {
+      float p0[4][kGvFrag], p1[4][kGvFrag];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int z = z0 + u;
+        const float* part = ws + (size_t)(tile * S + z) * nmat * (kGvFrag * kGvThreads) + tid;
+#pragma unroll
+        for (int f = 0; f < kGvFrag; ++f) {
+          const bool other = z < S && z != (int)blockIdx.y;
+          p0[u][f] = other ? __ldcg(part + f * kGvThreads) : acc0[f];
+          p1[u][f] = other && nmat == 2 ? __ldcg(part + (kGvFrag + f) * kGvThreads) : acc1[f];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (z0 + u < S)
+#pragma unroll
+          for (int f = 0; f < kGvFrag; ++f) {
+            sum0[f] += p0[u][f];
+            sum1[f] += p1[u][f];
+          }
+    }
+#pragma unroll
+    for (int f = 0; f < kGvFrag; ++f) {
+      acc0[f] = sum0[f];
+      acc1[f] = sum1[f];
+    }
+    if (tid == 0) counters[tile] = 0;
+  }
+
+  // accumulator f = 4 * mt + r: column n0 + (warp*kGvMT + mt)*16 + g + 8*(r/2),
+  // decode row 2t + r%2
+#pragma unroll
+  for (int f = 0; f < kGvFrag; ++f) {
+    const int n = n0 + (warp * kGvMT + (f >> 2)) * 16 + g + ((f >> 1) & 1) * 8;
+    const int b = 2 * t + (f & 1);
+    if (b >= B || n >= N) continue;
+    float v = round_bf16(acc0[f]);
+    if (bias != nullptr) v = round_bf16(v + bf2f(bias[n]));
+    if (act == 0) {
+      const float sg = round_bf16(v / (1.0f + expf(-v)));
+      v = round_bf16(sg * round_bf16(acc1[f]));
+    } else if (act == 1) {
+      const float inner = 0.7978845608028654f * (v + 0.044715f * v * v * v);
+      v = round_bf16(0.5f * v * (1.0f + tanhf(inner)));
+    } else if (act == 2) {
+      const float r = fmaxf(v, 0.f);
+      v = round_bf16(r * r);
+    }
+    y[(size_t)b * N + n] = __float2bfloat16(v);
   }
 }
 
@@ -439,14 +604,38 @@ int repro_fused_qkv(const void* x, const void* wq, const void* wk, const void* w
   return (int)cudaGetLastError();
 }
 
-// y (B, N) <- bf16(x (B, K) @ w (K, N)) + bias, nc columns per block.
-int repro_gemv_bias(const void* x, const void* w, const void* bias, void* y, int B,
-                    int K, int N, int nc, void* stream) {
-  if (!gemv_shape_ok(B, K, nc) || N <= 0 || N % nc != 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(N / nc);
-  REPRO_DISPATCH_B(B, gemv_bias_kernel<kB><<<grid, kThreads, 0, s>>>(
-      (const bf16*)x, (const bf16*)w, (const bf16*)bias, (bf16*)y, K, N, nc));
+// y (B, N) <- epilogue(x (B, K) @ w0 (K, N) [, x @ w1]): act -1 adds the
+// bias after one rounding to bf16; act 0..2 is the MLP's up pass (w1 only
+// with swiglu).  kt_per and split come from decode.py::gemv_plan; with
+// split > 1, ws holds tiles * split * (w1 ? 2 : 1) * 1024 floats and
+// counters one zeroed int per 128-column tile.
+int repro_gemv(const void* x, const void* w0, const void* w1, const void* bias, void* y,
+               int B, int K, int N, int kt_per, int split, void* ws, void* counters,
+               int act, void* stream) {
+  if (B < 1 || B > kMaxB || K <= 0 || K % 8 != 0 || N <= 0 || N % 8 != 0 || kt_per <= 0 ||
+      kt_per > kGvMaxKt || act < -1 || act > 2 || (act == 0) != (w1 != nullptr))
+    return (int)cudaErrorInvalidValue;
+  const int kt_all = (K + kGvK - 1) / kGvK;
+  if (split != (kt_all + kt_per - 1) / kt_per) return (int)cudaErrorInvalidValue;
+  if (split > 1 && (ws == nullptr || counters == nullptr)) return (int)cudaErrorInvalidValue;
+  const int xs_stride = kt_per * kGvK + 8;   // +16 bytes: conflict-free x reads
+  const int smem = kGvStages * kGvTile + B * xs_stride * 2;
+  static bool configured[kMaxDevices] = {};   // the attributes, once per device
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess && (dev >= kMaxDevices || !configured[dev])) {
+    err = cudaFuncSetAttribute(gemv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kGvStages * kGvTile + kMaxB * (kGvMaxKt * kGvK + 8) * 2);
+    if (err == cudaSuccess)   // all shared memory, no L1 carve-out: more blocks per SM
+      err = cudaFuncSetAttribute(gemv_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 (int)cudaSharedmemCarveoutMaxShared);
+    if (err == cudaSuccess && dev < kMaxDevices) configured[dev] = true;
+  }
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((N + kGvN - 1) / kGvN, split);
+  gemv_kernel<<<grid, kGvThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      (const bf16*)x, (const bf16*)w0, (const bf16*)w1, (const bf16*)bias, (bf16*)y, B, K, N,
+      kt_per, xs_stride, (float*)ws, (int*)counters, act);
   return (int)cudaGetLastError();
 }
 
@@ -474,19 +663,6 @@ int repro_decode_attention(const void* q, const void* k, const void* v, const vo
   REPRO_ATTN(8, 32) REPRO_ATTN(8, 64) REPRO_ATTN(8, 128)
 #undef REPRO_ATTN
   return (int)cudaErrorInvalidValue;
-}
-
-// h (B, F) <- act(bf16(x @ wg) + bu [, bf16(x @ wu)]), nc columns per block.
-int repro_mlp_up(const void* x, const void* wg, const void* wu, const void* bu, void* h,
-                 int B, int K, int F, int nc, int act, int gated, void* stream) {
-  if (!gemv_shape_ok(B, K, nc) || F <= 0 || F % nc != 0 || act < 0 || act > 2)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(F / nc);
-  REPRO_DISPATCH_B(B, mlp_up_kernel<kB><<<grid, kThreads, 0, s>>>(
-      (const bf16*)x, (const bf16*)wg, (const bf16*)wu, (const bf16*)bu, (bf16*)h, K,
-      F, nc, act, gated));
-  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -17,9 +17,15 @@ Each wrapper carries ``launches``, a plain integer that counts its calls
 that went to the kernel (one per call, though attention and MLP make two
 launches each); :func:`reset_launches` sets them, and every other kernel
 wrapper's count (``kernels.common``), to 0.
+
+The MLP's two products and the attention's output projection run on one
+split-K tensor-core GEMV (``csrc/decode.cu::gemv_kernel``).
+:func:`gemv_plan` picks its split of the reduction from the shape alone;
+the split partials and tile counters live in ``common.split_k_scratch``.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Optional, Sequence
 
@@ -27,6 +33,7 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.common import count_launches, reset_launches, use_kernel  # noqa: F401
+from repro_torch.kernels.common import split_k_scratch
 from repro_torch.kernels.common import cuda_stream as _stream
 from repro_torch.kernels.common import raise_on as _raise_on
 
@@ -68,13 +75,77 @@ def _sm_count(device: torch.device) -> int:
 
 
 def _gemv_cols(n: int, device: torch.device) -> int:
-    """Output columns per GEMV block: the widest slab (longer contiguous
-    weight reads) that still gives every SM a block, else the narrowest."""
+    """Output columns per block of a CUDA-core GEMV slab: the widest (longer
+    contiguous weight reads) that still gives every SM a block, else the
+    narrowest.  No launch uses it: the products it sized run on
+    :func:`gemv_plan`'s split-K GEMV."""
     fits = [nc for nc in (32, 16, 8) if n % nc == 0]
     if not fits:
         raise ValueError(f"output width {n} is not a multiple of 8")
     sms = _sm_count(device)
     return next((nc for nc in fits if n // nc >= sms), fits[-1])
+
+
+GEMV_N = 128        # output columns of a GEMV block (csrc/decode.cu kGvN)
+GEMV_K = 64         # weight rows of a stage (kGvK)
+GEMV_MAX_KT = 32    # k-tiles a split takes at most: the x slice fits in shared memory
+
+
+@dataclasses.dataclass(frozen=True)
+class GemvPlan:
+    """Column tiles, split of the k-tiles, and the scratch the GEMV needs."""
+    tiles: int          # GEMV_N-column tiles
+    split: int          # blocks along k per column tile
+    kt_per: int         # k-tiles (GEMV_K rows each) per split
+
+    @property
+    def blocks(self) -> int:
+        return self.tiles * self.split
+
+    def ws_floats(self, nmat: int) -> int:
+        """float32 partials for ``nmat`` weight matrices (0 without a split)."""
+        return self.tiles * self.split * nmat * GEMV_N * _MAX_B if self.split > 1 else 0
+
+    @property
+    def counters(self) -> int:
+        return self.tiles if self.split > 1 else 0
+
+
+@functools.lru_cache(maxsize=None)
+def gemv_plan(n: int, k: int, sms: int) -> GemvPlan:
+    """Split of a (K, N) weight's GEMV on a card with ``sms`` SMs: the
+    finest split of k (pieces of at most ``GEMV_MAX_KT`` k-tiles) whose
+    grid still runs in one wave of one block per SM, so every SM streams
+    an equal share; pieces as even as the split allows.  (On an H100 that
+    outran grids of two or more blocks per SM, and grids of 1.1-1.5 waves:
+    PERF.md.)"""
+    tiles = -(-n // GEMV_N)
+    kt = -(-k // GEMV_K)
+    split = max(1, min(kt, sms // tiles))
+    per = -(-kt // max(split, -(-kt // GEMV_MAX_KT)))
+    return GemvPlan(tiles, -(-kt // per), per)
+
+
+def workspace(dev: torch.device, stream: int, floats: int, counters: int):
+    """The GEMV's float32 partials and tile counters on ``dev`` and
+    ``stream`` (the counters zero between calls)."""
+    return split_k_scratch("gemv", dev, stream, floats, torch.float32, counters)
+
+
+def _gemv(x, w0, w1, bias, y, act: int, what: str):
+    """y <- epilogue(x @ w0 [, x @ w1]) through ``gemv_kernel`` (act -1:
+    bias only; 0..2: the MLP's up pass)."""
+    b, k = x.shape
+    n = y.shape[1]
+    dev = x.device
+    plan = gemv_plan(n, k, _sm_count(dev))
+    stream = _stream()
+    ws, cnt = workspace(dev, stream, plan.ws_floats(1 if w1 is None else 2), plan.counters)
+    err = _lib().repro_gemv(
+        x.data_ptr(), w0.data_ptr(), _ptr(w1), _ptr(bias), y.data_ptr(), b, k, n,
+        plan.kt_per, plan.split, ws.data_ptr(), cnt.data_ptr(), act, stream,
+    )
+    _raise_on(err, what)
 
 
 def _check_batch(b: int, k: int):
@@ -183,6 +254,8 @@ def fused_decode_attention(
     _check("q", q, (b, hq, hd), dev)
     _check("k", k, (b, sk, hkv, hd), dev)
     _check("v", v, (b, sk, hkv, hd), dev)
+    if d % 8:
+        raise ValueError(f"model width {d} is not a multiple of 8")
     _check("wo", wo, (hq * hd, d), dev)
     _check_opt("bo", bo, (d,), dev)
     _check("q_positions", q_positions, (b,), dev, torch.int32)
@@ -207,18 +280,13 @@ def fused_decode_attention(
     scale = ref.dtype_scalar(1.0 / (hd ** 0.5), q.dtype)
     ctx = torch.empty((b, hq * hd), dtype=q.dtype, device=dev)
     y = torch.empty((b, d), dtype=q.dtype, device=dev)
-    lib, stream = _lib(), _stream()
-    err = lib.repro_decode_attention(
+    err = _lib().repro_decode_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), kvp, kvp_stride,
         limit, limit_stride, q_positions.data_ptr(), win_ptr, win_static,
-        int(causal), scale, ctx.data_ptr(), b, sk, hq, hkv, hd, stream,
+        int(causal), scale, ctx.data_ptr(), b, sk, hq, hkv, hd, _stream(),
     )
     _raise_on(err, "fused_decode_attention (attention)")
-    err = lib.repro_gemv_bias(
-        ctx.data_ptr(), wo.data_ptr(), _ptr(bo), y.data_ptr(),
-        b, hq * hd, d, _gemv_cols(d, dev), stream,
-    )
-    _raise_on(err, "fused_decode_attention (output projection)")
+    _gemv(ctx, wo, None, bo, y, -1, "fused_decode_attention (output projection)")
     fused_decode_attention.launches += 1
     return y
 
@@ -257,17 +325,10 @@ def fused_mlp(
     _check_opt("b_down", b_down, (d,), dev)
     h = torch.empty((b, f), dtype=x.dtype, device=dev)
     y = torch.empty((b, d), dtype=x.dtype, device=dev)
-    lib, stream = _lib(), _stream()
-    err = lib.repro_mlp_up(
-        x.data_ptr(), _ptr(w_gate), w_up.data_ptr(), _ptr(b_up), h.data_ptr(),
-        b, d, f, _gemv_cols(f, dev), _ACT[act], int(gated), stream,
-    )
-    _raise_on(err, "fused_mlp (up)")
-    err = lib.repro_gemv_bias(
-        h.data_ptr(), w_down.data_ptr(), _ptr(b_down), y.data_ptr(),
-        b, f, d, _gemv_cols(d, dev), stream,
-    )
-    _raise_on(err, "fused_mlp (down)")
+    # the gate product (or up's, ungated) takes b_up; swiglu also needs up's
+    _gemv(x, w_gate if gated else w_up, w_up if act == "swiglu" else None, b_up, h,
+          _ACT[act], "fused_mlp (up)")
+    _gemv(h, w_down, None, b_down, y, -1, "fused_mlp (down)")
     fused_mlp.launches += 1
     return y
 

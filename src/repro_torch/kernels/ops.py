@@ -3,8 +3,9 @@
 The tensor decides, as everywhere in the port: a CUDA tensor goes to the
 hand-written kernels, a CPU tensor to their plain versions.  The glue the
 JAX package left to XLA outside its Pallas kernels stays plain torch here
-on both paths: the k=1/pad=0 strided shortcut of :func:`im2col` and the
-weight re-layout of :func:`conv2d_int8`.
+on both paths: the k=1/pad=0 strided shortcut of :func:`im2col`.  The
+weight re-layout XLA ran around the Pallas GEMM is gone: the GEMM reads a
+conv's weights as the ``(k*k*Cin, Cout)`` view they already are.
 """
 from __future__ import annotations
 
@@ -50,16 +51,17 @@ def conv2d_int8(
     """Convolution as GEMM: IM2COL + systolic int8 GEMM (paper Fig. 3).
 
     Returns (OH, OW, Cout) int8.  The GEMM reads the patch matrix as
-    :func:`im2col` writes it and writes the HWC map directly
-    (``int8_gemm.int8_gemm_pn``), so only the weights are re-laid out."""
+    :func:`im2col` writes it, the weights as their ``(k*k*Cin, Cout)``
+    view, and writes the HWC map directly (``int8_gemm.int8_gemm_pn``):
+    nothing is re-laid out."""
     h, w, cin = img.shape
     cout = w4d.shape[-1]
     oh = (h + 2 * pad - k) // stride + 1
     ow = (w + 2 * pad - k) // stride + 1
     patches = im2col(img, k, stride, pad)                          # (OH*OW, kkC)
-    wmat = w4d.permute(3, 0, 1, 2).reshape(cout, k * k * cin).contiguous()
+    wmat = w4d.reshape(k * k * cin, cout)                          # a view: (ki, kj, cin) outer
     res = None if residual is None else residual.reshape(oh * ow, cout)
-    y = _gemm.int8_gemm_pn(patches, wmat, bias, shift, res, relu=relu)   # (OH*OW, Cout)
+    y = _gemm.int8_gemm_pn(patches, wmat, bias, shift, res, relu=relu, w_layout="mn")
     return y.reshape(oh, ow, cout)
 
 

@@ -12,9 +12,13 @@ engine on the card; tolerance atol = rtol = 2e-2 in bf16, as in
 ``chip_smoke.py``.  PU kernels: ``int8_gemm`` with N, M and P that are
 multiples of no tile and shifts -8..31, ``im2col`` with C = 1 and 2 and
 odd geometries, conv-as-GEMM, and ResNet-18 on the card against the CPU,
-all bit for bit; ``niu_refresh`` at odd shapes, within the gate of
+all bit for bit; the split-K paths of both redesigned kernels (split
+and unsplit grids, both weight layouts, olmo-1b and smoke widths, two
+calls giving equal bits); ``niu_refresh`` at odd shapes, within the gate of
 ``chip_smoke.py`` (|diff| <= 1 on at most 1e-4 of the elements).
 """
+import importlib
+
 import numpy as np
 import pytest
 
@@ -25,6 +29,7 @@ from repro_torch.kernels import common, decode, ops, ref  # noqa: E402
 from repro_torch.kernels.int8_gemm import int8_gemm_pn  # noqa: E402
 from repro_torch.runtime.serving import ServeConfig, ServingEngine  # noqa: E402
 
+kgemm = importlib.import_module("repro_torch.kernels.int8_gemm")
 pytestmark = pytest.mark.cuda
 TOL = dict(atol=2e-2, rtol=2e-2)
 HEADS = [(4, 2, 32), (8, 2, 64), (8, 8, 128), (16, 2, 128)]   # (Hq, Hkv, hd)
@@ -103,6 +108,34 @@ def test_fused_mlp(gen, b, act, bias):
     torch.testing.assert_close(got, want, **TOL)
 
 
+@pytest.mark.parametrize("b", list(range(1, 9)))
+@pytest.mark.parametrize("act", ["swiglu", "gelu", "sq_relu"])
+@pytest.mark.parametrize("bias", [True, False])
+@pytest.mark.parametrize("width", ["smoke", "olmo-1b"])
+def test_fused_mlp_split_k_gemv(gen, b, act, bias, width):
+    """The split-K tensor-core GEMV at the smoke and the full olmo-1b
+    widths: within the bf16 tolerance of the plain version, the same bits
+    on a second call, and its per-tile counters back at zero."""
+    cfg = get_config("olmo-1b")
+    if width == "smoke":
+        cfg = smoke_variant(cfg)
+    d, f = cfg.d_model, cfg.d_ff
+    x = _rnd(gen, b, d)
+    wu, wd = _rnd(gen, d, f, scale=0.02), _rnd(gen, f, d, scale=0.02)
+    wg = _rnd(gen, d, f, scale=0.02) if act == "swiglu" else None
+    bu, bd = (_rnd(gen, f, scale=0.02), _rnd(gen, d, scale=0.02)) if bias else (None, None)
+    decode.reset_launches()
+    got = decode.fused_mlp(x, wu, wg, bu, wd, bd, act=act)
+    again = decode.fused_mlp(x, wu, wg, bu, wd, bd, act=act)
+    want = ref.fused_mlp_ref(x, wu, wg, bu, wd, bd, act=act)
+    torch.cuda.synchronize()
+    assert decode.fused_mlp.launches == 2
+    torch.testing.assert_close(got, want, **TOL)
+    assert torch.equal(got, again)
+    _, cnt = common._SCRATCH["gemv", x.device, torch.cuda.current_stream().cuda_stream]
+    assert not cnt.any()
+
+
 def test_kernel_rejects_what_it_cannot_take(gen):
     x = _rnd(gen, 9, 64)                       # more than 8 decode rows
     w = _rnd(gen, 64, 64)
@@ -162,6 +195,49 @@ def test_int8_gemm_shift_sweep(gen, shift):
         got = ops.int8_gemm(w, x, bias, shift=torch.tensor(shift, dtype=torch.int32, device="cuda"),
                             residual=res, relu=relu)
         assert torch.equal(got, ref.int8_gemm_ref(w, x, bias, shift, relu, res)), (shift, relu)
+
+
+SPLIT_CASES = [   # (P, N, M): P = 1, 7, 49 and conv1's 12544, M = 147, ragged N,
+    (1, 8, 4608), (7, 33, 100), (49, 512, 4608), (49, 2048, 512), (49, 72, 1152),   # split-K
+    (12544, 64, 147), (196, 100, 2304), (130, 129, 257), (12544, 512, 576),         # no split
+    (3, 2048, 64), (100, 48, 64),
+]
+
+
+@pytest.mark.parametrize("p,n,m", SPLIT_CASES)
+@pytest.mark.parametrize("layout", ["nm", "mn"])
+def test_int8_gemm_split_k_layouts(gen, p, n, m, layout):
+    """Split and unsplit grids the planner picks, both weight layouts, a
+    bias that wraps the int32 sum, with residual and ReLU: bit for bit with
+    the plain version, the same bits on a second call, the workspace left
+    at zero."""
+    a, wnm = _i8(gen, p, m), _i8(gen, n, m)
+    w = wnm if layout == "nm" else wnm.t().contiguous()
+    bias = torch.randint(2 ** 31 - 2 ** 22, 2 ** 31 - 1, (n,), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    bias[::2] *= -1
+    res = _i8(gen, p, n)
+    for shift, r, relu in ((-8, None, False), (0, res, True), (7, res, False), (31, None, True)):
+        common.reset_launches()
+        got = int8_gemm_pn(a, w, bias, shift, r, relu=relu, w_layout=layout)
+        again = int8_gemm_pn(a, w, bias, shift, r, relu=relu, w_layout=layout)
+        want = ref.int8_gemm_ref(wnm, a.T, bias, shift, relu, None if r is None else r.T).T
+        assert common.launch_counts()["int8_gemm"] == 2
+        assert torch.equal(got, want), (shift, relu)
+        assert torch.equal(got, again)
+    ws, cnt = common._SCRATCH["int8_gemm", a.device, torch.cuda.current_stream().cuda_stream]
+    assert not ws.any() and not cnt.any()
+
+
+@pytest.mark.parametrize("shift", list(range(-8, 32)))
+def test_int8_gemm_split_k_shift_sweep(gen, shift):
+    a, w = _i8(gen, 49, 1152), _i8(gen, 1152, 72)            # split-K, (M, N) weights
+    bias = torch.randint(-2 ** 20, 2 ** 20, (72,), generator=gen, device="cuda", dtype=torch.int32)
+    res = _i8(gen, 49, 72)
+    for relu in (False, True):
+        got = int8_gemm_pn(a, w, bias, torch.tensor(shift, dtype=torch.int32, device="cuda"), res,
+                           relu=relu, w_layout="mn")
+        assert torch.equal(got, ref.int8_gemm_ref(w.t(), a.T, bias, shift, relu, res.T).T)
 
 
 def test_int8_gemm_overflow_regime(gen):

@@ -221,6 +221,42 @@ def test_gemv_slab_needs_a_multiple_of_8(monkeypatch):
         decode._gemv_cols(2044, torch.device("cpu"))
 
 
+OLMO_GEMVS = [(8192, 2048), (2048, 8192), (2048, 2048)]   # (N, K): gate/up, down, wo
+SMOKE_GEMVS = [(256, 128), (128, 256), (128, 128)]         # the smoke variant's
+
+
+@pytest.mark.parametrize("n,k", OLMO_GEMVS + SMOKE_GEMVS + [(FF, D), (D, FF), (50304, 2048),
+                                                          (2048, 32768), (8, 8)])
+@pytest.mark.parametrize("sms", [132, 114])
+def test_gemv_plan_splits_k_into_one_wave(n, k, sms):
+    plan = decode.gemv_plan(n, k, sms)
+    kt = -(-k // decode.GEMV_K)
+    assert plan.tiles == -(-n // decode.GEMV_N)
+    # whole k-tiles per piece, every piece non-empty, none over the x slice's room
+    assert plan.split == -(-kt // plan.kt_per)
+    assert (plan.split - 1) * plan.kt_per < kt <= plan.split * plan.kt_per
+    assert plan.kt_per <= decode.GEMV_MAX_KT
+    # one wave of one block per SM, split as finely as that allows
+    if plan.kt_per < decode.GEMV_MAX_KT:
+        assert plan.blocks <= max(sms, plan.tiles)
+    assert plan.split == kt or plan.tiles * (plan.split + 1) > sms or \
+        plan.kt_per == decode.GEMV_MAX_KT
+    # the workspace the wrapper hands the kernel holds every partial
+    for nmat in (1, 2):
+        want = plan.tiles * plan.split * nmat * decode.GEMV_N * 8 if plan.split > 1 else 0
+        assert plan.ws_floats(nmat) == want
+        ws, cnt = decode.workspace(torch.device("cpu"), 0, want, plan.counters)
+        assert ws.dtype == torch.float32 and ws.numel() >= want
+        assert cnt.dtype == torch.int32 and cnt.numel() >= plan.counters and not cnt.any()
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+def test_olmo_gemvs_give_nearly_every_sm_a_block(sms):
+    for n, k in OLMO_GEMVS:
+        plan = decode.gemv_plan(n, k, sms)
+        assert sms - plan.tiles < plan.blocks <= sms, (n, k, plan)
+
+
 def test_swiglu_needs_a_gate(arrays):
     with pytest.raises(ValueError):
         decode.fused_mlp(_torch(arrays, "x"), _torch(arrays, "w_up"),

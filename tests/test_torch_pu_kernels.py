@@ -8,6 +8,8 @@ im2col and conv are integer arithmetic, and the NIU's float32 steps round
 where XLA's do.  The cases mirror those two files.  The CUDA kernels run
 only on the card (``chip_smoke.py``, ``tests/test_torch_cuda.py``).
 """
+import importlib
+
 import numpy as np
 import pytest
 
@@ -19,6 +21,9 @@ from repro.kernels import niu as jniu  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.kernels import common, ops  # noqa: E402
+from repro_torch.models import resnet  # noqa: E402
+
+kgemm = importlib.import_module("repro_torch.kernels.int8_gemm")
 
 
 @pytest.fixture(autouse=True)
@@ -94,6 +99,79 @@ def test_int8_gemm_overflow_regime(bias, against):
                         None if b is None else torch.from_numpy(b), shift=16)
     _same(got, _jax_gemm(against, jnp.asarray(w), jnp.asarray(x),
                          None if b is None else jnp.asarray(b), 16))
+
+
+@pytest.mark.parametrize("n,m,p", [(1, 1, 1), (7, 13, 5), (64, 64, 64), (100, 200, 72),
+                                   (129, 257, 130), (256, 64, 512), (64, 147, 300)])
+@pytest.mark.parametrize("against", ["pallas", "oracle"])
+def test_int8_gemm_pn_weight_layouts_match_jax(n, m, p, against):
+    """The kernel-layout entry point with the weights as (N, M) and as the
+    (M, N) view a conv hands it, bias, shift, residual and ReLU on."""
+    rng = np.random.default_rng(n * 7 + m + p)
+    w, x, res = _i8(rng, (n, m)), _i8(rng, (m, p)), _i8(rng, (n, p))
+    bias = rng.integers(-2 ** 20, 2 ** 20, (n,), dtype=np.int32)
+    want = _jax_gemm(against, jnp.asarray(w), jnp.asarray(x), jnp.asarray(bias), 6,
+                     jnp.asarray(res), relu=True)
+    a, tres = torch.from_numpy(x.T.copy()), torch.from_numpy(res.T.copy())
+    for layout, wt in (("nm", w), ("mn", w.T.copy())):
+        got = kgemm.int8_gemm_pn(a, torch.from_numpy(wt), torch.from_numpy(bias), 6, tres,
+                                 relu=True, w_layout=layout)
+        _same(got.T, want)
+
+
+def test_int8_gemm_pn_rejects_an_unknown_layout():
+    with pytest.raises(ValueError):
+        kgemm.int8_gemm_pn(torch.zeros((2, 4), dtype=torch.int8),
+                           torch.zeros((4, 3), dtype=torch.int8), w_layout="km")
+
+
+def _resnet_gemm_shapes(variant=50, image=224):
+    """(P, N, M) of every conv-as-GEMM of one forward, from the specs."""
+    specs = resnet.resnet_conv_specs(variant)
+    shapes = []
+
+    def conv(spec, hw, res):
+        oh = (hw + 2 * spec.pad - spec.k) // spec.stride + 1
+        shapes.append((oh * oh, spec.cout, spec.k * spec.k * spec.cin))
+        return oh
+
+    hw = conv(specs[0], image, None)
+    hw = (hw + 2 - 3) // 2 + 1          # the 3x3 / 2 max-pool
+    resnet._walk(specs, hw, hw, conv)
+    return shapes
+
+
+RESNET50_GEMMS = _resnet_gemm_shapes()
+
+
+def test_resnet50_has_53_gemms_of_20_shapes():
+    assert len(RESNET50_GEMMS) == 53 and len(set(RESNET50_GEMMS)) == 20
+    assert RESNET50_GEMMS[0] == (12544, 64, 147) and (49, 512, 4608) in RESNET50_GEMMS
+
+
+@pytest.mark.parametrize("shape", sorted(set(RESNET50_GEMMS)) + [(1, 8, 4608), (7, 33, 100),
+                                                                 (12544, 512, 576), (1, 1, 1)])
+@pytest.mark.parametrize("sms", [132, 114])
+def test_gemm_plan_fills_the_card_and_splits_on_k_tiles(shape, sms):
+    p, n, m = shape
+    plan = kgemm.gemm_plan(p, n, m, sms)
+    kt = -(-m // kgemm.GEMM_BK)
+    assert plan.tiles == -(-p // kgemm.GEMM_TILE) * -(-n // kgemm.GEMM_TILE)
+    # the split cuts k on k-tile boundaries, every piece non-empty
+    assert plan.split == -(-kt // plan.kt_per)
+    assert (plan.split - 1) * plan.kt_per < kt <= plan.split * plan.kt_per
+    # no finer than pieces of GEMM_MIN_KT k-tiles, and at least a block for
+    # every SM unless k is too short to split any finer
+    finest = -(-kt // kgemm.GEMM_MIN_KT)
+    assert plan.split <= finest
+    assert plan.blocks >= sms or plan.split == finest
+    if plan.tiles >= 2 * sms:
+        assert plan.split == 1
+    # the workspace the wrapper hands the kernel holds every partial
+    ws, cnt = kgemm.workspace(torch.device("cpu"), 0, plan)
+    assert ws.dtype == cnt.dtype == torch.int32
+    assert ws.numel() >= plan.ws_ints == (plan.tiles * kgemm.GEMM_TILE ** 2 if plan.split > 1 else 0)
+    assert cnt.numel() >= plan.counters and not cnt.any() and not ws.any()
 
 
 # -------------------------------------------------------------- IM2COL ----
