@@ -10,11 +10,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``nvcc`` per source, all started together.
 2. Kernel phase: each decode kernel against its plain PyTorch version on
    the card at olmo-1b shapes (B=8, d 2048, 16 heads x 128, d_ff 8192,
-   Sk 584), every attention mask case; ``fused_mlp`` called twice must
-   give equal bits; then CUDA-event times of the kernel, the plain
-   version and one PyTorch library call computing the same function,
-   with the L2 flushed before each timed call (``Timer``), and of each
-   launch of the split-K GEMV alone (the MLP's two, the attention's
+   Sk 584), every attention mask case and a lane with no slot to attend;
+   each decode kernel called twice must give equal bits; then CUDA-event
+   times of the kernel, the plain version and one PyTorch library call
+   computing the same function, with the L2 flushed before each timed
+   call (``Timer``), and of each launch alone with its grid and TB/s (the
+   QKV GEMV, the split attention, the MLP's two GEMVs, the attention's
    output projection).
 2a. PU kernel phase, on a seeded full-width ResNet-50 (224x224x3 int8
    image): ``int8_gemm`` and ``im2col`` against their plain versions bit
@@ -60,7 +61,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    token left out of attention); each must move the logits past
    ``LOGIT_ATOL``, so the limit is shown to catch a faulty path.
 7. Profile: ``torch.profiler`` over the kernel path's first engine step;
-   device time per decode round by kernel, and the device's idle share.
+   device time per decode round by kernel (the QKV GEMV, ``qkv_gemv_kernel``,
+   apart from the MLP's and ``@ wo``'s ``gemv_kernel``), and the device's
+   idle share.
 8. Print the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
    line last.
 """
@@ -171,6 +174,38 @@ class Timer:
         return statistics.median(times)
 
 
+GRAPH_COPIES = 4     # operand copies a timed graph cycles through (> the 50 MB L2 together)
+GRAPH_PASSES = 3     # passes over the copies in one graph
+GRAPH_REPLAYS = 7    # graph replays timed; the median is kept
+
+
+def graph_ms(torch, calls) -> float:
+    """Median ms per call of ``calls`` (each launching on the current
+    stream), captured back to back in one CUDA graph and replayed.  Given
+    one call per copy of its operands (``GRAPH_COPIES``, repeated
+    ``GRAPH_PASSES`` times), every call reads its operands from HBM and
+    finds the L2 clean, and no host time enters, unlike ``Timer``."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for c in calls:
+            c()
+    side.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, stream=side):
+        for c in calls:
+            c()
+    times = []
+    for _ in range(GRAPH_REPLAYS):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        g.replay()
+        e.record()
+        torch.cuda.synchronize()
+        times.append(s.elapsed_time(e) / len(calls))
+    return statistics.median(times)
+
+
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
@@ -215,6 +250,18 @@ def kernel_phase(torch, timer, rates):
             want = ref.fused_qkv_ref(x, wq, wk, wv, *bs, pos, rope=rope, **kw)
             for a, b_, n in zip(got, want, "qkv"):
                 err = max(err, close(a, b_, f"fused_qkv {n} bias={bias} rope={rope}"))
+            again = decode.fused_qkv(x, wq, wk, wv, *bs, pos, rope=rope, **kw)
+            assert all(torch.equal(a, b_) for a, b_ in zip(got, again)), \
+                f"fused_qkv bias={bias} rope={rope}: two calls differ"
+    print("[kernel] fused_qkv: two calls give equal bits in all four (bias, rope) cases", flush=True)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = decode.qkv_plan(HQ, HKV, HD, D, sms)
+    nb = nbytes(x, wq, wk, wv, bq, bk, bv, pos) + 2 * B * (HQ + 2 * HKV) * HD
+    t = timer(lambda: decode.fused_qkv(x, wq, wk, wv, bq, bk, bv, pos, **kw))
+    print(f"[kernel] fused_qkv launch (qkv_gemv_kernel, bias + rope): kernel_ms={t} "
+          f"bound_ms={bound(rates, nb)[0]} ({nb / t / 1e9} TB/s) grid {plan.tiles} column tiles "
+          f"{decode.qkv_tiles(HQ, HKV, HD)} x {plan.split} splits of {plan.kt_per} k-tiles",
+          flush=True)
     wqkv = torch.cat([wq, wk, wv], dim=1)
 
     def qkv_library():
@@ -249,6 +296,8 @@ def kernel_phase(torch, timer, rates):
         "ring_window": dict(q_positions=qpos + 40, kv_positions=ring,
                             window_arr=torch.tensor(200, dtype=torch.int32, device="cuda")),
         "noncausal": dict(q_positions=qpos, kv_valid_len=vlen, causal=False),
+        # lane 0 may attend no slot: the plain version attends all Sk uniformly
+        "no_valid_slot": dict(q_positions=qpos, kv_valid_len=torch.cat([vlen[:1] * 0, vlen[1:]])),
     }
     err = 0.0
     for name, ckw in cases.items():
@@ -256,10 +305,21 @@ def kernel_phase(torch, timer, rates):
             got = decode.fused_decode_attention(q, k, v, wo, bias, **ckw)
             want = ref.decode_attention_ref(q, k, v, wo, bias, **ckw)
             err = max(err, close(got, want, f"fused_decode_attention {name} bias={bias is not None}"))
+            again = decode.fused_decode_attention(q, k, v, wo, bias, **ckw)
+            assert torch.equal(got, again), f"fused_decode_attention {name}: two calls differ"
+    print(f"[kernel] fused_decode_attention: two calls give equal bits in all {len(cases)} mask "
+          f"cases, with and without bo", flush=True)
     tkw = cases["valid_len"]
     mask = ref.decode_mask(B, SK, q.device, **tkw)                     # (B, Sk)
     used = int(mask.sum().item())                                        # slots this run needs
     kv_bytes = 2 * used * HKV * HD * k.element_size()
+    plan = decode.attn_plan(B, HKV, SK, HD, sms)
+    nb = nbytes(q, vlen, qpos) + kv_bytes + 2 * B * HQ * HD
+    t = timer(lambda: decode._attention_ctx(q, k, v, **tkw))
+    print(f"[kernel] fused_decode_attention launch 1 (attn_kernel, valid_len): kernel_ms={t} "
+          f"bound_ms={bound(rates, nb)[0]} ({nb / t / 1e9} TB/s of the {used} of {B * SK} slots "
+          f"the lanes may attend) grid {B * HKV} (lane, kv-head) x {plan.splits} chunks of "
+          f"{plan.chunk} slots", flush=True)
     att_flops = 4 * used * HQ * HD + 2 * B * HQ * HD * D
     t_bound, by = bound(rates, nbytes(q, wo, bo, vlen, qpos) + kv_bytes + 2 * B * D, att_flops)
     kt, vt = k.transpose(1, 2), v.transpose(1, 2)                       # (B, H, Sk, hd)
@@ -293,7 +353,6 @@ def kernel_phase(torch, timer, rates):
     h = torch.empty((B, FF), dtype=bf, device="cuda")
     y = torch.empty((B, D), dtype=bf, device="cuda")
     ctx = rnd(B, HQ * HD)
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for what, args, nb in (
         ("fused_mlp launch 1 (gate/up + swiglu)", (x, wg, wu, bu, h, 0), nbytes(x, wg, wu, bu, h)),
         ("fused_mlp launch 2 (down + bias)", (h, wd, None, bd, y, -1), nbytes(h, wd, bd, y)),
@@ -918,10 +977,10 @@ def device_busy(torch, prof, window_name: str):
     return w1 - w0, busy, by_name
 
 
-def profile_phase(torch, round_s: float):
+def decode_block_profile(torch):
     """torch.profiler over the kernel path's first engine step (the first
-    wave's prefill and a 32-round decode block): device time per round by
-    kernel, and the device's idle share inside the block."""
+    wave's prefill and a 32-round decode block): (rounds, window us,
+    device-busy us, {device op: us}) of the block."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from repro_torch.launch import serve
@@ -940,7 +999,13 @@ def profile_phase(torch, round_s: float):
         engine.step()
     rounds = engine.decode_rounds
     del engine
-    window, busy, by_name = device_busy(torch, prof, "decode_block")
+    return (rounds, *device_busy(torch, prof, "decode_block"))
+
+
+def profile_phase(torch, round_s: float):
+    """Device time per decode round by kernel, and the device's idle share
+    inside a traced decode block (``decode_block_profile``)."""
+    rounds, window, busy, by_name = decode_block_profile(torch)
     window_ms, busy_ms = window / 1e3 / rounds, busy / 1e3 / rounds
     print(f"[profile] {rounds} rounds traced: block {window_ms} ms a round, device busy "
           f"{busy_ms} ms a round, idle share {1 - busy_ms / window_ms} under the profiler; "

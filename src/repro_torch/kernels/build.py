@@ -42,12 +42,12 @@ SOURCES: Dict[str, Tuple[tuple, dict]] = {
     "decode": ((), {
         "repro_fused_qkv": (
             _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-            _I, _I, _I, _I, _I, _I, _F, _P,
+            _I, _I, _I, _I, _I, _I, _F, _I, _I, _P, _P, _P,
         ),
         "repro_gemv": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _I, _P),
         "repro_decode_attention": (
             _P, _P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _F, _P,
-            _I, _I, _I, _I, _I, _P,
+            _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
         ),
     }),
     "pu": ((), {

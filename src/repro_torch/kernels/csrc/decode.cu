@@ -16,14 +16,15 @@
 // Why the kernels look the way they do.  The decode batch is B <= 8 rows,
 // far below a tensor-core tile, so every product here is a weight-streaming
 // GEMV: each weight byte is used B times, about 16 operations per byte, far
-// under the ~295 the H100 needs before arithmetic matters.  All three are
-// bound by the bytes they read from HBM.  The Pallas kernels walk a
+// under the ~295 the H100 needs before arithmetic matters.  The attention
+// reads each cached K and V byte for at most 8 query heads.  All of them
+// are bound by the bytes they read from HBM.  The Pallas kernels walk a
 // sequential grid on one TensorCore and carry sums in VMEM scratch from one
 // grid step to the next; Hopper's blocks run in parallel and in no order.
-// fused_qkv and the attention give each block whole output columns (or a
-// head), so the sequential axis becomes a loop inside a block.  The GEMV
-// behind fused_mlp and the attention's output projection splits the
-// reduction across blocks instead, and sums the partials in a fixed order.
+// So every kernel here splits its reduction (the weight rows, or the cache
+// slots) across blocks, writes float32 partials to a workspace, and lets
+// the last block of each output tile combine them in a fixed order, so
+// the result does not depend on which block finishes last.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -32,10 +33,9 @@
 
 namespace {
 
-constexpr int kThreads = 256;   // threads of a GEMV block
 constexpr int kMaxB = 8;        // decode rows a launch may carry
-constexpr int kMaxNC = 256;     // output columns a GEMV block may own
 constexpr float kNeg = -1e30f;  // mask sentinel (models.attention._NEG)
+constexpr int kMaxDevices = 64; // devices whose kernel attributes are remembered
 
 typedef __nv_bfloat16 bf16;
 
@@ -66,322 +66,6 @@ __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
-
-// ------------------------------------------------------ CUDA-core GEMV tile --
-// fused_qkv's product: out[b * kMaxNC + c] = sum_k x[b, k] * w[k, n0 + c] in float32, for b < B
-// and c < nc.  w is (K, N) row-major, the JAX package's (in, out) layout.
-//
-// The block's 256 threads split into nc/8 column chunks (8 bf16 = one
-// 16-byte load) times 256/(nc/8) k-groups.  A k-group's threads read one
-// contiguous run of a weight row, so a warp's loads are whole 32-byte
-// sectors.  Each thread streams 8 rows per step, keeps B x 8 float32 sums
-// in registers, and the k-groups are summed through shared memory at the
-// end (one lane row at a time, so the scratch stays 8 KB): every column
-// gets kThreads/nc adjacent threads of one warp, each adds 8 partials and
-// the group finishes with shuffles, so the sum is deterministic.
-template <int B>
-__device__ void gemv_tile(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                          int K, int N, int n0, int nc, float* red, float* out) {
-  const int nchunks = nc / 8;
-  const int nkg = kThreads / nchunks;
-  const int t = threadIdx.x;
-  const int chunk = t % nchunks;
-  const int kg = t / nchunks;
-
-  float acc[B][8];
-#pragma unroll
-  for (int b = 0; b < B; ++b)
-#pragma unroll
-    for (int c = 0; c < 8; ++c) acc[b][c] = 0.f;
-
-  const bf16* wcol = w + n0 + chunk * 8;
-  for (int k0 = kg * 8; k0 < K; k0 += nkg * 8) {
-    float wf[8][8];
-#pragma unroll
-    for (int r = 0; r < 8; ++r) {
-      const uint4 u = __ldg(reinterpret_cast<const uint4*>(wcol + (size_t)(k0 + r) * N));
-      unpack8(u, wf[r]);
-    }
-#pragma unroll
-    for (int b = 0; b < B; ++b) {
-      float xf[8];
-      unpack8(__ldg(reinterpret_cast<const uint4*>(x + (size_t)b * K + k0)), xf);
-#pragma unroll
-      for (int r = 0; r < 8; ++r)
-#pragma unroll
-        for (int c = 0; c < 8; ++c) acc[b][c] = fmaf(xf[r], wf[r][c], acc[b][c]);
-    }
-  }
-
-  const int tpc = kThreads / nc;  // threads per column, a power of two <= 32
-  const int col = t / tpc, sub = t % tpc;
-#pragma unroll
-  for (int b = 0; b < B; ++b) {
-#pragma unroll
-    for (int c = 0; c < 8; ++c) red[kg * nc + chunk * 8 + c] = acc[b][c];
-    __syncthreads();
-    float s = 0.f;
-    for (int g = sub; g < nkg; g += tpc) s += red[g * nc + col];
-    for (int o = tpc / 2; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-    if (sub == 0) out[b * kMaxNC + col] = s;
-    __syncthreads();
-  }
-}
-
-// -------------------------------------------------------------- fused QKV --
-// Replaces repro/kernels/decode.py::fused_qkv (_qkv_kernel).
-// Bound: the bytes of wq, wk and wv, read once (25.2 MB a layer at
-// olmo-1b).  One block owns one head's head_dim columns of q, k or v
-// (Hq + 2 Hkv blocks), so both RoPE halves of a head meet in its epilogue:
-// round the float32 sum to bf16, add the bias in bf16, then rotate in
-// float32 with angles pos * theta^(-2i/hd), as decode.py:188-193 computes.
-template <int B>
-__global__ void __launch_bounds__(kThreads)
-qkv_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wq,
-           const bf16* __restrict__ wk, const bf16* __restrict__ wv,
-           const bf16* __restrict__ bq, const bf16* __restrict__ bk,
-           const bf16* __restrict__ bv, const int* __restrict__ pos,
-           bf16* __restrict__ q, bf16* __restrict__ k, bf16* __restrict__ v,
-           int K, int Hq, int Hkv, int hd, int rope, float theta) {
-  __shared__ float red[kThreads * 8];
-  __shared__ float out[kMaxB * kMaxNC];
-
-  const int blk = blockIdx.x;
-  const bf16* w;
-  const bf16* bias;
-  bf16* y;
-  int N, head;
-  bool rot;
-  if (blk < Hq) {
-    w = wq; bias = bq; y = q; N = Hq * hd; head = blk; rot = rope != 0;
-  } else if (blk < Hq + Hkv) {
-    w = wk; bias = bk; y = k; N = Hkv * hd; head = blk - Hq; rot = rope != 0;
-  } else {
-    w = wv; bias = bv; y = v; N = Hkv * hd; head = blk - Hq - Hkv; rot = false;
-  }
-  const int n0 = head * hd;
-  gemv_tile<B>(x, w, K, N, n0, hd, red, out);
-
-  const int half = hd / 2;
-  for (int i = threadIdx.x; i < B * hd; i += kThreads) {
-    const int b = i / hd, c = i % hd;
-    float val = round_bf16(out[b * kMaxNC + c]);
-    if (bias != nullptr) val = round_bf16(val + bf2f(bias[n0 + c]));
-    if (rot) {
-      const bool lo = c < half;
-      const int j = lo ? c : c - half;
-      const int cp = lo ? c + half : c - half;
-      float partner = round_bf16(out[b * kMaxNC + cp]);
-      if (bias != nullptr) partner = round_bf16(partner + bf2f(bias[n0 + cp]));
-      const float freq = 1.0f / powf(theta, __fdiv_rn((float)(2 * j), (float)hd));
-      const float ang = __fmul_rn((float)(pos != nullptr ? pos[b] : 0), freq);
-      const float sn = sinf(ang), cs = cosf(ang);
-      // t1*cos - t2*sin | t2*cos + t1*sin, without fused multiply-adds so
-      // the float32 value is the reference's
-      val = lo ? __fsub_rn(__fmul_rn(val, cs), __fmul_rn(partner, sn))
-               : __fadd_rn(__fmul_rn(val, cs), __fmul_rn(partner, sn));
-    }
-    y[(size_t)b * N + n0 + c] = __float2bfloat16(val);
-  }
-}
-
-// ---------------------------------------------------- fused decode attention --
-// Replaces repro/kernels/decode.py::fused_decode_attention
-// (_decode_attn_kernel), launch 1 of 2.
-// Bound: the bytes of the K and V cache, read once (38.3 MB a layer at
-// olmo-1b, B=8, Sk=584), plus wo in launch 2.  One block per (lane,
-// kv-head); its four warps take 32-slot tiles of Sk in turn, one slot per
-// lane, and keep the running (max, denom, acc) softmax of decode.py:305-328
-// in float32 registers.  p is rounded to bf16 before the PV product and
-// the sum is divided by max(l, 1e-30) at the end, as the TPU kernel does.
-// The warps' partial states are merged through shared memory, and ctx is
-// written in bf16 to a (B, Hq*hd) scratch that gemv_kernel turns into
-// ctx @ wo + bo.  Only B*Hkv blocks are in flight (128 at olmo-1b): a
-// split of Sk across blocks (flash-decoding) is later work.
-template <int G, int HD>
-__global__ void __launch_bounds__(128)
-attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-            const bf16* __restrict__ v, const int* __restrict__ kvp, int kvp_stride,
-            const int* __restrict__ limit, int limit_stride,
-            const int* __restrict__ qpos, const int* __restrict__ win_ptr,
-            int win_static, int causal, float scale, bf16* __restrict__ ctx,
-            int Sk, int Hkv) {
-  constexpr int kWarps = 4;
-  constexpr int DPL = HD / 32;  // head dims per lane in the PV sum
-  __shared__ float qs[G][HD];
-  __shared__ float wm[kWarps][G];
-  __shared__ float wl[kWarps][G];
-  __shared__ float wacc[kWarps][G][HD];
-
-  const int b = blockIdx.x / Hkv, kh = blockIdx.x % Hkv;
-  const int Hq = Hkv * G;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-
-  // (q * scale) rounded to bf16 before the score product (decode.py:287)
-  for (int i = threadIdx.x; i < G * HD; i += blockDim.x) {
-    const int g = i / HD, d = i % HD;
-    qs[g][d] = round_bf16(bf2f(q[((size_t)b * Hq + kh * G + g) * HD + d]) * scale);
-  }
-  __syncthreads();
-
-  const long long row = causal ? qpos[b] : 0;
-  const long long win = win_ptr != nullptr ? *win_ptr : win_static;
-  const int lim = limit != nullptr ? limit[(size_t)b * limit_stride] : Sk;
-  const size_t slot = (size_t)Hkv * HD;  // elements between cache slots
-  const bf16* kb = k + ((size_t)b * Sk * Hkv + kh) * HD;
-  const bf16* vb = v + ((size_t)b * Sk * Hkv + kh) * HD;
-
-  float m[G], l[G], acc[G][DPL];
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    m[g] = kNeg;
-    l[g] = 0.f;
-#pragma unroll
-    for (int e = 0; e < DPL; ++e) acc[g][e] = 0.f;
-  }
-
-  for (int t0 = warp * 32; t0 < Sk; t0 += kWarps * 32) {
-    const int j = t0 + lane;
-    const bool in_range = j < Sk;
-    float s[G];
-#pragma unroll
-    for (int g = 0; g < G; ++g) s[g] = 0.f;
-    bool valid = false;
-    if (in_range) {
-      const bf16* kr = kb + (size_t)j * slot;
-#pragma unroll
-      for (int d0 = 0; d0 < HD; d0 += 8) {
-        float kf[8];
-        unpack8(__ldg(reinterpret_cast<const uint4*>(kr + d0)), kf);
-#pragma unroll
-        for (int g = 0; g < G; ++g)
-#pragma unroll
-          for (int c = 0; c < 8; ++c) s[g] = fmaf(qs[g][d0 + c], kf[c], s[g]);
-      }
-      long long col = j;
-      if (kvp != nullptr) {
-        col = kvp[(size_t)b * kvp_stride + j];
-        valid = col >= 0;  // ring slot never written
-      } else {
-        valid = col < lim;
-      }
-      if (causal) valid = valid && col <= row && col > row - win;
-    }
-
-    float p[G];
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      const float sg = valid ? s[g] : kNeg;
-      const float m_new = fmaxf(m[g], warp_max(in_range ? sg : -INFINITY));
-      const float corr = expf(m[g] - m_new);
-      const float pg = in_range ? expf(sg - m_new) : 0.f;
-      l[g] = l[g] * corr + warp_sum(pg);
-      m[g] = m_new;
-      p[g] = round_bf16(pg);
-#pragma unroll
-      for (int e = 0; e < DPL; ++e) acc[g][e] *= corr;
-    }
-
-    const int nkeys = min(32, Sk - t0);
-    const bf16* vr = vb + (size_t)t0 * slot + lane * DPL;
-    if (nkeys == 32) {
-#pragma unroll 8
-      for (int i = 0; i < 32; ++i) {
-        float vf[DPL];
-#pragma unroll
-        for (int e = 0; e < DPL; ++e) vf[e] = bf2f(vr[(size_t)i * slot + e]);
-#pragma unroll
-        for (int g = 0; g < G; ++g) {
-          const float pi = __shfl_sync(0xffffffffu, p[g], i);
-#pragma unroll
-          for (int e = 0; e < DPL; ++e) acc[g][e] = fmaf(pi, vf[e], acc[g][e]);
-        }
-      }
-    } else {
-      for (int i = 0; i < nkeys; ++i) {
-        float vf[DPL];
-#pragma unroll
-        for (int e = 0; e < DPL; ++e) vf[e] = bf2f(vr[(size_t)i * slot + e]);
-#pragma unroll
-        for (int g = 0; g < G; ++g) {
-          const float pi = __shfl_sync(0xffffffffu, p[g], i);
-#pragma unroll
-          for (int e = 0; e < DPL; ++e) acc[g][e] = fmaf(pi, vf[e], acc[g][e]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    if (lane == 0) {
-      wm[warp][g] = m[g];
-      wl[warp][g] = l[g];
-    }
-#pragma unroll
-    for (int e = 0; e < DPL; ++e) wacc[warp][g][lane * DPL + e] = acc[g][e];
-  }
-  __syncthreads();
-
-  for (int i = threadIdx.x; i < G * HD; i += blockDim.x) {
-    const int g = i / HD, d = i % HD;
-    float mx = wm[0][g];
-#pragma unroll
-    for (int w = 1; w < kWarps; ++w) mx = fmaxf(mx, wm[w][g]);
-    float den = 0.f, num = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const float c = expf(wm[w][g] - mx);
-      den += wl[w][g] * c;
-      num += wacc[w][g][d] * c;
-    }
-    ctx[((size_t)b * Hq + kh * G + g) * HD + d] = __float2bfloat16(num / fmaxf(den, 1e-30f));
-  }
-}
-
-// ------------------------------------------------ split-K tensor-core GEMV --
-// Replaces repro/kernels/decode.py::fused_mlp (_mlp_kernel) in two
-// launches (gate/up + activation into h, then h @ w_down + b_down), and
-// is launch 2 of fused_decode_attention (ctx @ wo + bo).
-// y[b, n] = epilogue(sum_k x[b, k] w[k, n]) for b < B <= 8.  The TPU
-// kernel kept h in VMEM; here h (128 KB at B=8) stays in the 50 MB L2
-// between the two launches.
-// Bound: the bytes of w (33.6 MB for w_down at olmo-1b).  The design is
-// about streaming them at the memory's rate from every SM:
-// - wide tiles: a block owns 128 output columns and streams weight tiles
-//   of 64 k-rows x 128 columns (256 contiguous bytes a row, whole sectors)
-//   through a ring of 4 stages of 16-byte cp.async copies, rows swizzled
-//   (16-byte chunk c of row r stored at c ^ (r & 7)) so ldmatrix is free
-//   of bank conflicts;
-// - tensor cores: the block computes the transpose, out^T (N, B) = W^T
-//   (N, K) . x^T (K, B), with mma.sync m16n8k16 bf16 -> f32: the weight
-//   tile is the A operand, read k-major from the row-major (k, n) tile by
-//   ldmatrix.trans; x^T is the B operand, its 8 columns the decode rows
-//   (rows past B read as zero), from a slice of x kept in shared memory;
-// - split-K: the grid's y axis splits the k-tiles as finely as one wave
-//   of one block per SM allows, so every SM streams an equal share
-//   (repro_torch/kernels/decode.py::gemv_plan; 128 blocks of 16 k-tiles
-//   at olmo-1b's MLP).  Each block writes its f32 partial to a
-//   workspace; the last block of a column tile to arrive (a per-tile
-//   counter, __threadfence + atomicAdd) sums the partials in split
-//   order, so the result does not depend on which block finishes last,
-//   and sets the counter back to 0.
-// The epilogue keeps the contract: one rounding to bf16 of the f32 sum,
-// then the bias in bf16; for the MLP's up pass (act >= 0) the activation
-// in f32 with the rounding points of repro/kernels/decode.py::_mlp_kernel.
-// With w1 (swiglu only), each block streams the tiles of w0 (gate) and w1
-// (up) in turn and keeps both sums.
-// act: -1 none (bias only), 0 swiglu, 1 gelu (tanh form, as
-// jax.nn.gelu), 2 squared relu.
-constexpr int kGvThreads = 128;              // 4 warps
-constexpr int kGvN = 128;                    // output columns of a block
-constexpr int kGvMT = kGvN / (kGvThreads / 32) / 16;   // m16 column tiles of a warp
-constexpr int kGvK = 64;                     // weight rows of a stage
-constexpr int kGvStages = 4;
-constexpr int kGvTile = kGvK * kGvN * 2;     // bytes of a stage
-constexpr int kGvFrag = 4 * kGvMT;           // f32 sums per thread per matrix
-constexpr int kGvMaxKt = 32;                 // k-tiles a split may take (decode.py GEMV_MAX_KT)
-constexpr int kMaxDevices = 64;              // devices whose kernel attributes are remembered
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -416,17 +100,410 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, const uint
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// Grid (column tiles, splits); kt_per k-tiles per split.  Shared memory:
-// the ring, then the block's slice of x as B rows of xs_stride elements.
-// With more than one split, ws holds tiles * splits * nmat * 1024 floats
-// and counters one int per column tile (zero on entry, zero on exit).
-__global__ void __launch_bounds__(kGvThreads)
-gemv_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w0,
-            const bf16* __restrict__ w1, const bf16* __restrict__ bias,
-            bf16* __restrict__ y, int B, int K, int N, int kt_per, int xs_stride,
-            float* __restrict__ ws, int* __restrict__ counters, int act) {
+// Prefer all of the SM's unified memory as shared memory (more blocks per
+// SM), and allow up to `dyn_smem` bytes of dynamic shared memory, once per
+// device for each kernel.
+template <typename Kernel>
+cudaError_t configure_once(Kernel kernel, bool* configured, int dyn_smem) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev < kMaxDevices && configured[dev])) return err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dyn_smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess && dev < kMaxDevices) configured[dev] = true;
+  return err;
+}
+
+// ---------------------------------------------------- fused decode attention --
+// Replaces repro/kernels/decode.py::fused_decode_attention
+// (_decode_attn_kernel), launch 1 of 2; launch 2 is ctx @ wo + bo on the
+// split-K GEMV below.
+// Bound: the bytes of the K and V slots a lane may attend, read once
+// (about 36 MB a layer at olmo-1b, B=8, Sk=584), plus wo in launch 2.
+// Flash-decoding: grid (B*Hkv, S).  Block (b*Hkv + kh, s) owns chunk s of
+// the cache, slots [s*C, s*C + C) (C and S from decode.py::attn_plan), for
+// the G = Hq/Hkv query heads of kv-head kh, which share every K and V row
+// it reads.  So at olmo-1b 128 (lane, kv-head) pairs give 1664 blocks of
+// 48 slots, several per SM, where one block per pair (128 blocks) left
+// most of the memory's bandwidth unused.
+// - The block first works out which of its slots the lane may attend
+//   (ring kv_positions, else col < kv_valid_len; causal col <= q_pos and
+//   col > q_pos - window), from the device tensors alone.  A chunk with no
+//   such slot issues no K or V load and writes an empty partial (l = 0).
+// - Otherwise each warp takes a quarter of the chunk's slots through
+//   every step on its own, with no block barrier between them: its K
+//   rows, then its V rows (2*hd contiguous bytes each), go to shared
+//   memory as 16-byte cp.async copies in two groups, so V is in flight
+//   while the scores are computed; scores with hd/8 lanes per slot, 8
+//   dims each, summed with shuffles (a masked slot scores -1e30); the
+//   warp's softmax: m = its max, p = exp(s - m) (rounded to bf16 for the
+//   PV product, as decode.py:321 does), l = sum of p in float32; PV with
+//   each lane owning 8 dims of every head.  The four warps' states are
+//   then rescaled to the chunk's max and added in a fixed order.
+// - The partial (m[G], l[G], acc[G][hd]) goes to the workspace.  The last
+//   block of a (lane, kv-head) to arrive (a counter) merges the partials
+//   in split order, rescaling by exp(m_s - m) as the max grows, divides
+//   by max(l, 1e-30), writes ctx in bf16 and sets the counter back to 0.
+// - A lane with no slot to attend has p = 1 on every slot in the plain
+//   version (exp(-1e30 - -1e30)), so its ctx is the mean of V over all Sk
+//   slots: when every partial is empty, the merging block computes that.
+// All sums run in a fixed order, so two calls give equal bits.
+constexpr int kAtThreads = 128;                 // 4 warps
+constexpr int kAtWarps = kAtThreads / 32;
+constexpr int kAtMaxSlots = 256;                // slots a chunk may hold (decode.py ATTN_MAX_SLOTS)
+constexpr int kAtChunkBytes = 16384;            // bytes of K a chunk may hold (ATTN_CHUNK_BYTES)
+constexpr int kAtBatch = 8;                     // splits whose partials the merge loads at once
+
+// Dynamic shared memory of a chunk of C slots: its K and V rows, the
+// warps' PV sums, the float32 scores and the bf16 p.
+__host__ __device__ inline int attn_smem_bytes(int C, int G, int HD) {
+  return 2 * C * HD * 2 + kAtWarps * G * HD * 4 + G * C * 4 + G * C * 2;
+}
+
+template <int G, int HD>
+__global__ void __launch_bounds__(kAtThreads)
+attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+            const bf16* __restrict__ v, const int* __restrict__ kvp, int kvp_stride,
+            const int* __restrict__ limit, int limit_stride,
+            const int* __restrict__ qpos, const int* __restrict__ win_ptr,
+            int win_static, int causal, float scale, bf16* __restrict__ ctx,
+            int Sk, int Hkv, int C, float* __restrict__ ws, int* __restrict__ counters) {
+  constexpr int LPS = HD / 8;            // lanes per slot (16 bytes of a row each)
+  constexpr int RPW = 32 / LPS;          // slots a warp covers per step
+  constexpr int PART = G * (HD + 2);     // floats of a partial: m[G], l[G], acc[G][HD]
+  extern __shared__ __align__(16) uint8_t at_smem[];
+  __shared__ uint8_t ok[kAtMaxSlots];
+  __shared__ float wm[kAtWarps][G], wl[kAtWarps][G];
+  __shared__ int s_last;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int dc = lane % LPS;             // this lane's 8 dims: [8 dc, 8 dc + 8)
+  const int bk = blockIdx.x, b = bk / Hkv, kh = bk % Hkv;
+  const int S = gridDim.y, c0 = blockIdx.y * C, n = min(C, Sk - c0);
+  const int Hq = Hkv * G;
+  const size_t slot = (size_t)Hkv * HD;  // elements between cache slots
+  const bf16* kb = k + ((size_t)b * Sk * Hkv + kh) * HD;
+  const bf16* vb = v + ((size_t)b * Sk * Hkv + kh) * HD;
+  float* part = ws + ((size_t)bk * S + blockIdx.y) * PART;
+
+  // the slots of this chunk the lane may attend (decode.py:291-301)
+  const long long row = causal ? qpos[b] : 0;
+  const long long win = win_ptr != nullptr ? *win_ptr : win_static;
+  const long long lim = limit != nullptr ? limit[(size_t)b * limit_stride] : Sk;
+  int any = 0;
+  for (int j = tid; j < n; j += kAtThreads) {
+    long long col = c0 + j;
+    bool valid;
+    if (kvp != nullptr) {
+      col = kvp[(size_t)b * kvp_stride + c0 + j];
+      valid = col >= 0;  // ring slot never written
+    } else {
+      valid = col < lim;
+    }
+    if (causal) valid = valid && col <= row && col > row - win;
+    ok[j] = valid;
+    any |= valid;
+  }
+  any = __syncthreads_or(any);
+
+  if (any) {
+    bf16* ks = reinterpret_cast<bf16*>(at_smem);                           // [C][HD]
+    bf16* vs = ks + C * HD;                                                // [C][HD]
+    float* red = reinterpret_cast<float*>(vs + C * HD);                    // [warps][G][HD]
+    float* sc = red + kAtWarps * G * HD;                                   // [G][C]
+    bf16* pb = reinterpret_cast<bf16*>(sc + G * C);                        // [G][C]
+    // each warp owns slots [w0, w1) of the chunk: it copies their rows and
+    // takes them through scores, softmax and PV on its own
+    const int per = (n + kAtWarps - 1) / kAtWarps;
+    const int w0 = min(n, warp * per), w1 = min(n, w0 + per);
+    for (int i = lane; i < (w1 - w0) * LPS; i += 32) {
+      const int r = w0 + i / LPS, c = i % LPS;
+      cp_async16(smem_u32(ks + r * HD + c * 8), kb + (size_t)(c0 + r) * slot + c * 8, 16);
+    }
+    cp_async_commit();
+    for (int i = lane; i < (w1 - w0) * LPS; i += 32) {
+      const int r = w0 + i / LPS, c = i % LPS;
+      cp_async16(smem_u32(vs + r * HD + c * 8), vb + (size_t)(c0 + r) * slot + c * 8, 16);
+    }
+    cp_async_commit();
+
+    // (q * scale) rounded to bf16 before the score product (decode.py:287)
+    float qr[G][8];
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      unpack8(__ldg(reinterpret_cast<const uint4*>(q + ((size_t)b * Hq + kh * G + g) * HD + dc * 8)),
+              qr[g]);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) qr[g][e] = round_bf16(qr[g][e] * scale);
+    }
+    cp_async_wait<1>();
+    __syncwarp();
+
+    for (int j0 = w0; j0 < w1; j0 += RPW) {
+      const int j = j0 + lane / LPS;
+      float s[G];
+#pragma unroll
+      for (int g = 0; g < G; ++g) s[g] = 0.f;
+      if (j < w1) {
+        float kf[8];
+        unpack8(*reinterpret_cast<const uint4*>(ks + j * HD + dc * 8), kf);
+#pragma unroll
+        for (int g = 0; g < G; ++g)
+#pragma unroll
+          for (int e = 0; e < 8; ++e) s[g] = fmaf(qr[g][e], kf[e], s[g]);
+      }
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+#pragma unroll
+        for (int o = LPS / 2; o > 0; o >>= 1) s[g] += __shfl_xor_sync(0xffffffffu, s[g], o);
+      if (j < w1 && dc == 0)
+#pragma unroll
+        for (int g = 0; g < G; ++g) sc[g * C + j] = ok[j] ? s[g] : kNeg;
+    }
+    __syncwarp();
+
+    // the warp's streaming-softmax state (decode.py:305-328)
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      float mx = kNeg;
+      for (int j = w0 + lane; j < w1; j += 32) mx = fmaxf(mx, sc[g * C + j]);
+      mx = warp_max(mx);
+      float l = 0.f;
+      for (int j = w0 + lane; j < w1; j += 32) {
+        const float p = expf(sc[g * C + j] - mx);
+        l += p;
+        pb[g * C + j] = __float2bfloat16(p);
+      }
+      l = warp_sum(l);
+      if (lane == 0) {
+        wm[warp][g] = mx;
+        wl[warp][g] = l;
+      }
+    }
+    cp_async_wait<0>();
+    __syncwarp();
+
+    float acc[G][8];
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc[g][e] = 0.f;
+    for (int j = w0 + lane / LPS; j < w1; j += RPW) {
+      float vf[8];
+      unpack8(*reinterpret_cast<const uint4*>(vs + j * HD + dc * 8), vf);
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        const float p = bf2f(pb[g * C + j]);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) acc[g][e] = fmaf(p, vf[e], acc[g][e]);
+      }
+    }
+#pragma unroll
+    for (int o = LPS; o < 32; o <<= 1)
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+#pragma unroll
+        for (int e = 0; e < 8; ++e) acc[g][e] += __shfl_xor_sync(0xffffffffu, acc[g][e], o);
+    if (lane < LPS)
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+#pragma unroll
+        for (int e = 0; e < 8; ++e) red[(warp * G + g) * HD + dc * 8 + e] = acc[g][e];
+    __syncthreads();
+
+    // the chunk's state: the warps' states rescaled to the chunk's max (a
+    // warp with no slot to attend has m = -1e30 and weighs exp(-1e30 - m) = 0)
+    for (int i = tid; i < G * HD; i += kAtThreads) {
+      const int g = i / HD;
+      float m = wm[0][g];
+#pragma unroll
+      for (int w = 1; w < kAtWarps; ++w) m = fmaxf(m, wm[w][g]);
+      float a = 0.f, l = 0.f;
+#pragma unroll
+      for (int w = 0; w < kAtWarps; ++w) {
+        const float c = expf(wm[w][g] - m);
+        a += red[w * G * HD + i] * c;
+        l += wl[w][g] * c;
+      }
+      __stcg(part + 2 * G + i, a);
+      if (i % HD == 0) {
+        __stcg(part + g, m);
+        __stcg(part + G + g, l);
+      }
+    }
+  } else if (tid < G) {   // no slot to attend: an empty partial
+    __stcg(part + tid, kNeg);
+    __stcg(part + G + tid, 0.f);
+  }
+
+  __threadfence();
+  __syncthreads();
+  if (S > 1) {
+    if (tid == 0) s_last = atomicAdd(counters + bk, 1) == S - 1;
+    __syncthreads();
+    if (!s_last) return;
+    __threadfence();
+  }
+
+  // the last block of (b, kh): every chunk's partial in split order, in
+  // one pass that rescales as the maximum grows, the loads of kAtBatch
+  // splits in flight at a time.  A chunk with no slot to attend has l = 0
+  // and is passed over.
+  const float* parts = ws + (size_t)bk * S * PART;
+  bf16* out = ctx + ((size_t)b * Hq + kh * G) * HD;
+  bool seen = false;   // a chunk had a slot to attend (the same for every head)
+  for (int i = tid; i < G * HD; i += kAtThreads) {
+    const int g = i / HD;
+    float m = -INFINITY, num = 0.f, den = 0.f;
+    for (int z0 = 0; z0 < S; z0 += kAtBatch) {
+      float ms[kAtBatch], ls[kAtBatch], as[kAtBatch];
+#pragma unroll
+      for (int u = 0; u < kAtBatch; ++u) {
+        const bool in = z0 + u < S;
+        const float* ps = parts + (size_t)(in ? z0 + u : 0) * PART;
+        ms[u] = __ldcg(ps + g);
+        ls[u] = in ? __ldcg(ps + G + g) : 0.f;
+        as[u] = __ldcg(ps + 2 * G + i);
+      }
+#pragma unroll
+      for (int u = 0; u < kAtBatch; ++u)
+        if (ls[u] > 0.f) {
+          const float mn = fmaxf(m, ms[u]);
+          const float co = expf(m - mn), cs = expf(ms[u] - mn);
+          den = den * co + ls[u] * cs;
+          num = num * co + as[u] * cs;
+          m = mn;
+        }
+    }
+    seen = seen || m != -INFINITY;
+    out[i] = __float2bfloat16(num / fmaxf(den, 1e-30f));
+  }
+  if (!__syncthreads_or(seen)) {
+    // every slot masked: p = 1 on all Sk slots, ctx = their mean of V
+    float acc[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc[e] = 0.f;
+    for (int j = lane / LPS + warp * RPW; j < Sk; j += kAtWarps * RPW) {
+      float vf[8];
+      unpack8(__ldg(reinterpret_cast<const uint4*>(vb + (size_t)j * slot + dc * 8)), vf);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc[e] += vf[e];
+    }
+#pragma unroll
+    for (int o = LPS; o < 32; o <<= 1)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc[e] += __shfl_xor_sync(0xffffffffu, acc[e], o);
+    float* red = reinterpret_cast<float*>(at_smem);
+    if (lane < LPS)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) red[warp * HD + dc * 8 + e] = acc[e];
+    __syncthreads();
+    for (int i = tid; i < G * HD; i += kAtThreads) {
+      const int d = i % HD;
+      float a = red[d];
+#pragma unroll
+      for (int w = 1; w < kAtWarps; ++w) a += red[w * HD + d];
+      out[i] = __float2bfloat16(a / (float)Sk);
+    }
+  }
+  if (S > 1 && tid == 0) counters[bk] = 0;
+}
+
+// ------------------------------------------------ split-K tensor-core GEMV --
+// Replaces repro/kernels/decode.py::fused_mlp (_mlp_kernel) in two
+// launches (gate/up + activation into h, then h @ w_down + b_down), is
+// launch 2 of fused_decode_attention (ctx @ wo + bo), and, as its own
+// kernel qkv_gemv_kernel, replaces repro/kernels/decode.py::fused_qkv
+// (_qkv_kernel).
+// y[b, n] = epilogue(sum_k x[b, k] w[k, n]) for b < B <= 8.  The TPU
+// kernel kept h in VMEM; here h (128 KB at B=8) stays in the 50 MB L2
+// between the two launches.
+// Bound: the bytes of w (33.6 MB for w_down at olmo-1b).  The design is
+// about streaming them at the memory's rate from every SM:
+// - wide tiles: a block owns 128 output columns and streams weight tiles
+//   of 64 k-rows x 128 columns (256 contiguous bytes a row, whole sectors)
+//   through a ring of 4 stages of 16-byte cp.async copies, rows swizzled
+//   (16-byte chunk c of row r stored at c ^ (r & 7)) so ldmatrix is free
+//   of bank conflicts;
+// - tensor cores: the block computes the transpose, out^T (N, B) = W^T
+//   (N, K) . x^T (K, B), with mma.sync m16n8k16 bf16 -> f32: the weight
+//   tile is the A operand, read k-major from the row-major (k, n) tile by
+//   ldmatrix.trans; x^T is the B operand, its 8 columns the decode rows
+//   (rows past B read as zero), from a slice of x kept in shared memory;
+// - split-K: the grid's y axis splits the k-tiles as finely as one wave
+//   of one block per SM allows, so every SM streams an equal share
+//   (repro_torch/kernels/decode.py::gemv_plan; 128 blocks of 16 k-tiles
+//   at olmo-1b's MLP).  Each block writes its f32 partial to a
+//   workspace; the last block of a column tile to arrive (a per-tile
+//   counter, __threadfence + atomicAdd) sums the partials in split
+//   order, so the result does not depend on which block finishes last,
+//   and sets the counter back to 0.
+// The epilogue keeps the contract: one rounding to bf16 of the f32 sum,
+// then the bias in bf16; for the MLP's up pass (act >= 0) the activation
+// in f32 with the rounding points of repro/kernels/decode.py::_mlp_kernel.
+// With w1 (swiglu only), each block streams the tiles of w0 (gate) and w1
+// (up) in turn and keeps both sums.
+// act: -1 none (bias only), 0 swiglu, 1 gelu (tanh form, as
+// jax.nn.gelu), 2 squared relu.
+//
+// QKV (bound: the 25.2 MB of wq, wk and wv at olmo-1b): one grid over the
+// column tiles of all three weights, read where they lie (no copy or
+// concatenation): tiles [0, tq) are wq's, then wk's, then wv's, and no
+// tile straddles two matrices.  A head of hd <= 128 lies inside one tile;
+// a 256-wide head spans two, and tile r of it holds dims [64r, 64r + 64)
+// of both halves, so both columns of every RoPE pair meet in one tile
+// (qkv_col; decode.py::qkv_columns).  Every block computes the cos and
+// sin of its tile's B x 64 RoPE angles, pos * theta^(-2j/hd) as
+// repro/kernels/decode.py:188-193 computes them, while its first weight
+// tiles are in flight; the last block of a tile stages the rounded, biased
+// tile (B x 128 f32) in shared memory, then rotates each pair of q and k
+// columns in float32 with no fused multiply-adds.
+constexpr int kGvThreads = 128;              // 4 warps
+constexpr int kGvN = 128;                    // output columns of a block
+constexpr int kGvMT = kGvN / (kGvThreads / 32) / 16;   // m16 column tiles of a warp
+constexpr int kGvK = 64;                     // weight rows of a stage
+constexpr int kGvStages = 4;
+constexpr int kGvTile = kGvK * kGvN * 2;     // bytes of a stage
+constexpr int kGvFrag = 4 * kGvMT;           // f32 sums per thread per matrix
+constexpr int kGvMaxKt = 32;                 // k-tiles a split may take (decode.py GEMV_MAX_KT)
+constexpr int kGvMaxSmem = kGvStages * kGvTile + kMaxB * (kGvMaxKt * kGvK + 8) * 2;
+
+// Matrix column of local column lc of QKV tile tl (the tile's index within
+// its matrix).
+__device__ __forceinline__ int qkv_col(int tl, int lc, int hd) {
+  if (hd <= kGvN) return tl * kGvN + lc;
+  return (tl >> 1) * hd + (lc >= kGvN / 2 ? hd / 2 : 0) + (tl & 1) * (kGvN / 2) + (lc & (kGvN / 2 - 1));
+}
+
+struct QkvArgs {
+  const bf16* w[3];        // wq, wk, wv (K, n[i]) row-major
+  const bf16* bias[3];     // or all null
+  bf16* y[3];              // q, k, v (B, n[i])
+  int n[3];                // columns of each matrix
+  int tiles[3];            // column tiles of each
+  const int* pos;          // (B,) or null (position 0)
+  int hd, rope;
+  float theta;
+};
+
+// The shared body.  Grid (column tiles, splits); kt_per k-tiles per split.
+// Shared memory: the ring, then the block's slice of x as B rows of
+// xs_stride elements.  With more than one split, ws holds tiles * splits *
+// nmat * 1024 floats and counters one int per column tile (zero on entry,
+// zero on exit).  With kQkv, tl is the tile's index within its matrix, and
+// rot says whether its columns are rotated.
+template <bool kQkv>
+__device__ __forceinline__ void gemv_body(
+    const bf16* __restrict__ x, const bf16* __restrict__ w0, const bf16* __restrict__ w1,
+    const bf16* __restrict__ bias, bf16* __restrict__ y, int B, int K, int N, int kt_per,
+    int xs_stride, float* __restrict__ ws, int* __restrict__ counters, int act, int tl,
+    int hd, bool rot, const int* __restrict__ pos, float theta) {
   extern __shared__ __align__(16) uint8_t gv_smem[];
   __shared__ int s_last;
+  // QKV: cos and sin of each (decode row, RoPE pair of the tile)
+  __shared__ float rope_cs[kQkv ? kMaxB * kGvN / 2 : 1], rope_sn[kQkv ? kMaxB * kGvN / 2 : 1];
   bf16* xs = reinterpret_cast<bf16*>(gv_smem + kGvStages * kGvTile);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -435,6 +512,13 @@ gemv_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w0,
   const int kt0 = blockIdx.y * kt_per;
   const int nkt = min((K + kGvK - 1) / kGvK, kt0 + kt_per) - kt0;
   const int tiles = nkt * nmat;   // weight tiles this block streams
+  auto col = [&](int lc) {        // the weight column of the tile's column lc
+    if constexpr (kQkv) return qkv_col(tl, lc, hd);
+    else return n0 + lc;
+  };
+  // QKV: the tile's RoPE pairs, (lc, lc + lhalf) for the p-th first-half column lc
+  const int lhalf = min(hd, kGvN) / 2;
+  auto pair_col = [&](int p) { return p / lhalf * (2 * lhalf) + p % lhalf; };
 
   // this block's slice of x, in the first copy group
   for (int q = tid; q < B * nkt * (kGvK / 8); q += kGvThreads) {
@@ -452,9 +536,10 @@ gemv_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w0,
     for (int j = 0; j < kGvTile / 16 / kGvThreads; ++j) {
       const int q = tid + j * kGvThreads;
       const int r = q >> 4, c = q & 15;
-      const bool ok = k0 + r < K && n0 + c * 8 < N;
+      const int n = col(c * 8);
+      const bool ok = k0 + r < K && n < N;
       cp_async16(slot + r * (kGvN * 2) + ((c ^ (r & 7)) << 4),
-                 ok ? w + (size_t)(k0 + r) * N + n0 + c * 8 : w, ok ? 16 : 0);
+                 ok ? w + (size_t)(k0 + r) * N + n : w, ok ? 16 : 0);
     }
   };
 
@@ -466,6 +551,19 @@ gemv_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w0,
   for (int i = 0; i < kGvStages - 1; ++i) {
     if (i < tiles) load(i);
     cp_async_commit();
+  }
+  if constexpr (kQkv) {
+    // the rotation's angles pos * theta^(-2j/hd), as repro/kernels/decode.py:188-193
+    // computes them, while the first tiles are in flight
+    if (rot)
+      for (int i = tid; i < B * (kGvN / 2); i += kGvThreads) {
+        const int b = i / (kGvN / 2);
+        const int j = col(pair_col(i % (kGvN / 2))) % hd;
+        const float freq = 1.0f / powf(theta, __fdiv_rn((float)(2 * j), (float)hd));
+        const float ang = __fmul_rn((float)(pos != nullptr ? pos[b] : 0), freq);
+        rope_sn[i] = sinf(ang);
+        rope_cs[i] = cosf(ang);
+      }
   }
   for (int i = 0; i < tiles; ++i) {
     cp_async_wait<kGvStages - 2>();
@@ -544,6 +642,41 @@ gemv_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w0,
     if (tid == 0) counters[tile] = 0;
   }
 
+  if constexpr (kQkv) {
+    // stage the tile rounded to bf16 and biased, so each RoPE pair meets
+    // its partner (c +- hd/2, another warp's fragment), then rotate
+    float* st = reinterpret_cast<float*>(gv_smem);   // [B][kGvN]; the ring is spent
+    __syncthreads();
+#pragma unroll
+    for (int f = 0; f < kGvFrag; ++f) {
+      const int lc = (warp * kGvMT + (f >> 2)) * 16 + g + ((f >> 1) & 1) * 8;
+      const int b = 2 * t + (f & 1);
+      const int n = col(lc);
+      if (b >= B || n >= N) continue;
+      float v = round_bf16(acc0[f]);
+      if (bias != nullptr) v = round_bf16(v + bf2f(bias[n]));
+      st[b * kGvN + lc] = v;
+    }
+    __syncthreads();
+    for (int i = tid; i < B * (kGvN / 2); i += kGvThreads) {
+      const int b = i / (kGvN / 2), lc = pair_col(i % (kGvN / 2));
+      const int n = col(lc);   // its partner is column n + hd/2, at lc + lhalf
+      if (n >= N) continue;
+      float t1 = st[b * kGvN + lc], t2 = st[b * kGvN + lc + lhalf];
+      if (rot) {
+        // t1*cos - t2*sin | t2*cos + t1*sin, without fused multiply-adds so
+        // the float32 value is the reference's
+        const float cs = rope_cs[i], sn = rope_sn[i];
+        const float r1 = __fsub_rn(__fmul_rn(t1, cs), __fmul_rn(t2, sn));
+        t2 = __fadd_rn(__fmul_rn(t2, cs), __fmul_rn(t1, sn));
+        t1 = r1;
+      }
+      y[(size_t)b * N + n] = __float2bfloat16(t1);
+      y[(size_t)b * N + n + hd / 2] = __float2bfloat16(t2);
+    }
+    return;
+  }
+
   // accumulator f = 4 * mt + r: column n0 + (warp*kGvMT + mt)*16 + g + 8*(r/2),
   // decode row 2t + r%2
 #pragma unroll
@@ -567,40 +700,75 @@ gemv_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w0,
   }
 }
 
-bool gemv_shape_ok(int B, int K, int nc) {
-  return B >= 1 && B <= kMaxB && K > 0 && K % 8 == 0 && nc >= 8 && nc <= kMaxNC &&
-         nc % 8 == 0 && kThreads % (nc / 8) == 0;
+__global__ void __launch_bounds__(kGvThreads)
+gemv_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w0,
+            const bf16* __restrict__ w1, const bf16* __restrict__ bias,
+            bf16* __restrict__ y, int B, int K, int N, int kt_per, int xs_stride,
+            float* __restrict__ ws, int* __restrict__ counters, int act) {
+  gemv_body<false>(x, w0, w1, bias, y, B, K, N, kt_per, xs_stride, ws, counters, act, 0, 0,
+                   false, nullptr, 0.f);
+}
+
+// fused_qkv: blockIdx.x runs over the tiles of wq, then wk, then wv.
+__global__ void __launch_bounds__(kGvThreads)
+qkv_gemv_kernel(const bf16* __restrict__ x, const QkvArgs a, int B, int K, int kt_per,
+                int xs_stride, float* __restrict__ ws, int* __restrict__ counters) {
+  const int tile = blockIdx.x;
+  const int m = tile < a.tiles[0] ? 0 : tile < a.tiles[0] + a.tiles[1] ? 1 : 2;
+  const int tl = tile - (m > 0 ? a.tiles[0] : 0) - (m > 1 ? a.tiles[1] : 0);
+  const bf16* w = m == 0 ? a.w[0] : m == 1 ? a.w[1] : a.w[2];
+  const bf16* bias = m == 0 ? a.bias[0] : m == 1 ? a.bias[1] : a.bias[2];
+  bf16* y = m == 0 ? a.y[0] : m == 1 ? a.y[1] : a.y[2];
+  const int N = m == 0 ? a.n[0] : m == 1 ? a.n[1] : a.n[2];
+  gemv_body<true>(x, w, nullptr, bias, y, B, K, N, kt_per, xs_stride, ws, counters, -1, tl,
+                  a.hd, a.rope != 0 && m < 2, a.pos, a.theta);
+}
+
+// The x slice's row stride and the dynamic shared memory of a split of
+// kt_per k-tiles; -1 if the split does not match kt_per.
+int gemv_launch_shape(int B, int K, int kt_per, int split, int* xs_stride, int* smem) {
+  const int kt_all = (K + kGvK - 1) / kGvK;
+  if (kt_per <= 0 || kt_per > kGvMaxKt || split != (kt_all + kt_per - 1) / kt_per) return -1;
+  *xs_stride = kt_per * kGvK + 8;   // +16 bytes: conflict-free x reads
+  *smem = kGvStages * kGvTile + B * *xs_stride * 2;
+  return 0;
 }
 
 }  // namespace
 
-#define REPRO_DISPATCH_B(B, ...)                      \
-  switch (B) {                                        \
-    case 1: { constexpr int kB = 1; __VA_ARGS__; break; } \
-    case 2: { constexpr int kB = 2; __VA_ARGS__; break; } \
-    case 3: { constexpr int kB = 3; __VA_ARGS__; break; } \
-    case 4: { constexpr int kB = 4; __VA_ARGS__; break; } \
-    case 5: { constexpr int kB = 5; __VA_ARGS__; break; } \
-    case 6: { constexpr int kB = 6; __VA_ARGS__; break; } \
-    case 7: { constexpr int kB = 7; __VA_ARGS__; break; } \
-    case 8: { constexpr int kB = 8; __VA_ARGS__; break; } \
-    default: return (int)cudaErrorInvalidValue;       \
-  }
-
 extern "C" {
 
 // q (B, Hq*hd), k/v (B, Hkv*hd) <- x (B, K) @ wq/wk/wv (K, .) + bias, RoPE.
+// kt_per and split come from decode.py::qkv_plan; with split > 1, ws holds
+// tiles * split * 1024 floats and counters one zeroed int per tile.
 int repro_fused_qkv(const void* x, const void* wq, const void* wk, const void* wv,
                     const void* bq, const void* bk, const void* bv, const void* pos,
                     void* q, void* k, void* v, int B, int K, int Hq, int Hkv, int hd,
-                    int rope, float theta, void* stream) {
-  if (!gemv_shape_ok(B, K, hd) || Hq <= 0 || Hkv <= 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(Hq + 2 * Hkv);
-  REPRO_DISPATCH_B(B, qkv_kernel<kB><<<grid, kThreads, 0, s>>>(
-      (const bf16*)x, (const bf16*)wq, (const bf16*)wk, (const bf16*)wv,
-      (const bf16*)bq, (const bf16*)bk, (const bf16*)bv, (const int*)pos,
-      (bf16*)q, (bf16*)k, (bf16*)v, K, Hq, Hkv, hd, rope, theta));
+                    int rope, float theta, int kt_per, int split, void* ws, void* counters,
+                    void* stream) {
+  if (B < 1 || B > kMaxB || K <= 0 || K % 8 != 0 || Hq <= 0 || Hkv <= 0 ||
+      (hd != 16 && hd != 32 && hd != 64 && hd != 128 && hd != 256))
+    return (int)cudaErrorInvalidValue;
+  int xs_stride = 0, smem = 0;
+  if (gemv_launch_shape(B, K, kt_per, split, &xs_stride, &smem) != 0 ||
+      (split > 1 && (ws == nullptr || counters == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  static bool configured[kMaxDevices] = {};
+  const cudaError_t err = configure_once(qkv_gemv_kernel, configured, kGvMaxSmem);
+  if (err != cudaSuccess) return (int)err;
+  QkvArgs a;
+  a.w[0] = (const bf16*)wq; a.w[1] = (const bf16*)wk; a.w[2] = (const bf16*)wv;
+  a.bias[0] = (const bf16*)bq; a.bias[1] = (const bf16*)bk; a.bias[2] = (const bf16*)bv;
+  a.y[0] = (bf16*)q; a.y[1] = (bf16*)k; a.y[2] = (bf16*)v;
+  a.n[0] = Hq * hd; a.n[1] = a.n[2] = Hkv * hd;
+  for (int i = 0; i < 3; ++i) a.tiles[i] = (a.n[i] + kGvN - 1) / kGvN;
+  a.pos = (const int*)pos;
+  a.hd = hd;
+  a.rope = rope;
+  a.theta = theta;
+  const dim3 grid(a.tiles[0] + a.tiles[1] + a.tiles[2], split);
+  qkv_gemv_kernel<<<grid, kGvThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      (const bf16*)x, a, B, K, kt_per, xs_stride, (float*)ws, (int*)counters);
   return (int)cudaGetLastError();
 }
 
@@ -612,25 +780,15 @@ int repro_fused_qkv(const void* x, const void* wq, const void* wk, const void* w
 int repro_gemv(const void* x, const void* w0, const void* w1, const void* bias, void* y,
                int B, int K, int N, int kt_per, int split, void* ws, void* counters,
                int act, void* stream) {
-  if (B < 1 || B > kMaxB || K <= 0 || K % 8 != 0 || N <= 0 || N % 8 != 0 || kt_per <= 0 ||
-      kt_per > kGvMaxKt || act < -1 || act > 2 || (act == 0) != (w1 != nullptr))
+  if (B < 1 || B > kMaxB || K <= 0 || K % 8 != 0 || N <= 0 || N % 8 != 0 || act < -1 ||
+      act > 2 || (act == 0) != (w1 != nullptr))
     return (int)cudaErrorInvalidValue;
-  const int kt_all = (K + kGvK - 1) / kGvK;
-  if (split != (kt_all + kt_per - 1) / kt_per) return (int)cudaErrorInvalidValue;
+  int xs_stride = 0, smem = 0;
+  if (gemv_launch_shape(B, K, kt_per, split, &xs_stride, &smem) != 0)
+    return (int)cudaErrorInvalidValue;
   if (split > 1 && (ws == nullptr || counters == nullptr)) return (int)cudaErrorInvalidValue;
-  const int xs_stride = kt_per * kGvK + 8;   // +16 bytes: conflict-free x reads
-  const int smem = kGvStages * kGvTile + B * xs_stride * 2;
-  static bool configured[kMaxDevices] = {};   // the attributes, once per device
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess && (dev >= kMaxDevices || !configured[dev])) {
-    err = cudaFuncSetAttribute(gemv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kGvStages * kGvTile + kMaxB * (kGvMaxKt * kGvK + 8) * 2);
-    if (err == cudaSuccess)   // all shared memory, no L1 carve-out: more blocks per SM
-      err = cudaFuncSetAttribute(gemv_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                                 (int)cudaSharedmemCarveoutMaxShared);
-    if (err == cudaSuccess && dev < kMaxDevices) configured[dev] = true;
-  }
+  static bool configured[kMaxDevices] = {};
+  const cudaError_t err = configure_once(gemv_kernel, configured, kGvMaxSmem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((N + kGvN - 1) / kGvN, split);
   gemv_kernel<<<grid, kGvThreads, smem, static_cast<cudaStream_t>(stream)>>>(
@@ -639,23 +797,35 @@ int repro_gemv(const void* x, const void* w0, const void* w1, const void* bias, 
   return (int)cudaGetLastError();
 }
 
-// ctx (B, Hq*hd) <- single-token GQA of q (B, Hq, hd) over k/v (B, Sk, Hkv, hd).
+// ctx (B, Hq*hd) <- single-token GQA of q (B, Hq, hd) over k/v (B, Sk, Hkv, hd),
+// in `splits` chunks of `chunk` slots (decode.py::attn_plan); ws holds
+// B * Hkv * splits * (Hq/Hkv) * (hd + 2) floats and counters B * Hkv
+// zeroed ints.
 int repro_decode_attention(const void* q, const void* k, const void* v, const void* kvp,
                            int kvp_stride, const void* limit, int limit_stride,
                            const void* qpos, const void* win_ptr, int win_static,
                            int causal, float scale, void* ctx, int B, int Sk, int Hq,
-                           int Hkv, int hd, void* stream) {
-  if (B <= 0 || Sk <= 0 || Hkv <= 0 || Hq % Hkv != 0) return (int)cudaErrorInvalidValue;
+                           int Hkv, int hd, int chunk, int splits, void* ws, void* counters,
+                           void* stream) {
+  if (B <= 0 || Sk <= 0 || Hkv <= 0 || Hq % Hkv != 0 || chunk <= 0 || chunk % 16 != 0 ||
+      chunk > kAtMaxSlots || chunk * hd * 2 > kAtChunkBytes ||
+      splits != (Sk + chunk - 1) / chunk || ws == nullptr || counters == nullptr)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int G = Hq / Hkv;
-  const dim3 grid(B * Hkv);
-#define REPRO_ATTN(GV, HDV)                                                          \
-  if (G == GV && hd == HDV) {                                                        \
-    attn_kernel<GV, HDV><<<grid, 128, 0, s>>>(                                       \
-        (const bf16*)q, (const bf16*)k, (const bf16*)v, (const int*)kvp, kvp_stride, \
-        (const int*)limit, limit_stride, (const int*)qpos, (const int*)win_ptr,      \
-        win_static, causal, scale, (bf16*)ctx, Sk, Hkv);                             \
-    return (int)cudaGetLastError();                                                  \
+  const dim3 grid(B * Hkv, splits);
+#define REPRO_ATTN(GV, HDV)                                                            \
+  if (G == GV && hd == HDV) {                                                          \
+    static bool configured[kMaxDevices] = {};                                          \
+    const int most = attn_smem_bytes(kAtChunkBytes / (2 * HDV), GV, HDV);                \
+    const cudaError_t err = configure_once(attn_kernel<GV, HDV>, configured, most);    \
+    if (err != cudaSuccess) return (int)err;                                           \
+    attn_kernel<GV, HDV><<<grid, kAtThreads, attn_smem_bytes(chunk, GV, HDV), s>>>(    \
+        (const bf16*)q, (const bf16*)k, (const bf16*)v, (const int*)kvp, kvp_stride,   \
+        (const int*)limit, limit_stride, (const int*)qpos, (const int*)win_ptr,        \
+        win_static, causal, scale, (bf16*)ctx, Sk, Hkv, chunk, (float*)ws,             \
+        (int*)counters);                                                               \
+    return (int)cudaGetLastError();                                                    \
   }
   REPRO_ATTN(1, 32) REPRO_ATTN(1, 64) REPRO_ATTN(1, 128)
   REPRO_ATTN(2, 32) REPRO_ATTN(2, 64) REPRO_ATTN(2, 128)

@@ -18,10 +18,14 @@ that went to the kernel (one per call, though attention and MLP make two
 launches each); :func:`reset_launches` sets them, and every other kernel
 wrapper's count (``kernels.common``), to 0.
 
-The MLP's two products and the attention's output projection run on one
-split-K tensor-core GEMV (``csrc/decode.cu::gemv_kernel``).
-:func:`gemv_plan` picks its split of the reduction from the shape alone;
-the split partials and tile counters live in ``common.split_k_scratch``.
+The MLP's two products, the attention's output projection and (as its
+own kernel, ``qkv_gemv_kernel``) the QKV projections run on one split-K
+tensor-core GEMV (``csrc/decode.cu``).  :func:`gemv_plan` picks its split
+of the reduction from the shape alone; :func:`qkv_columns` maps the QKV
+grid's column tiles onto the three weights.  The attention splits the
+cache into chunks across blocks (flash-decoding), sized by
+:func:`attn_plan`.  The split partials and tile counters live in
+``common.split_k_scratch``.
 """
 from __future__ import annotations
 
@@ -126,6 +130,64 @@ def gemv_plan(n: int, k: int, sms: int) -> GemvPlan:
     return GemvPlan(tiles, -(-kt // per), per)
 
 
+def qkv_tiles(n_heads: int, n_kv_heads: int, head_dim: int) -> tuple:
+    """Column tiles of wq, wk and wv in the QKV grid (tiles ``[0, tq)`` are
+    wq's, then wk's, then wv's; none straddles two matrices)."""
+    return tuple(-(-h * head_dim // GEMV_N) for h in (n_heads, n_kv_heads, n_kv_heads))
+
+
+def qkv_columns(tile: int, head_dim: int) -> tuple:
+    """The matrix columns of the ``GEMV_N`` columns of QKV tile ``tile``
+    (its index within its matrix), as ``csrc/decode.cu::qkv_col`` maps
+    them (columns past the matrix's width are never written).  A head of
+    at most ``GEMV_N`` lies within one tile; a wider head (256) spans two,
+    and tile r of it holds dims ``[64r, 64r + 64)`` of both halves, so
+    both columns of every RoPE pair (c, c + hd/2) meet in one tile."""
+    if head_dim <= GEMV_N:
+        return tuple(range(tile * GEMV_N, (tile + 1) * GEMV_N))
+    run = GEMV_N // 2
+    head, r = divmod(tile, 2)
+    return tuple(head * head_dim + (lc >= run) * (head_dim // 2) + r * run + lc % run
+                 for lc in range(GEMV_N))
+
+
+def qkv_plan(n_heads: int, n_kv_heads: int, head_dim: int, k: int, sms: int) -> GemvPlan:
+    """The QKV grid: every column tile of the three weights, split along
+    k as :func:`gemv_plan` splits one weight of as many tiles."""
+    return gemv_plan(sum(qkv_tiles(n_heads, n_kv_heads, head_dim)) * GEMV_N, k, sms)
+
+
+ATTN_CHUNK_BYTES = 16384    # K bytes of a chunk in shared memory (csrc/decode.cu kAtChunkBytes)
+ATTN_MAX_SLOTS = 256        # slots a chunk may hold (kAtMaxSlots)
+ATTN_SLOTS = 16             # a chunk's slots are a multiple of this
+ATTN_BLOCKS_PER_SM = 12     # blocks the split aims at for every SM
+
+
+@dataclasses.dataclass(frozen=True)
+class AttnPlan:
+    """The attention's split of the cache: ``splits`` chunks of ``chunk``
+    slots (the last one may be shorter)."""
+    chunk: int
+    splits: int
+
+    def ws_floats(self, b: int, hkv: int, groups: int, hd: int) -> int:
+        """float32 partials (m, l, acc) of every block."""
+        return b * hkv * self.splits * groups * (hd + 2)
+
+
+@functools.lru_cache(maxsize=None)
+def attn_plan(b: int, hkv: int, sk: int, hd: int, sms: int) -> AttnPlan:
+    """Chunks of the cache for ``b * hkv`` (lane, kv-head) pairs on a card
+    with ``sms`` SMs: as many as give every SM about
+    ``ATTN_BLOCKS_PER_SM`` blocks, each a multiple of ``ATTN_SLOTS``
+    slots whose K rows fit ``ATTN_CHUNK_BYTES``.  Sized from the shape
+    alone: which slots a lane may attend is known only on the device."""
+    cap = min(ATTN_MAX_SLOTS, ATTN_CHUNK_BYTES // (2 * hd)) // ATTN_SLOTS * ATTN_SLOTS
+    want = -(-ATTN_BLOCKS_PER_SM * sms // (b * hkv))
+    chunk = min(cap, -(-sk // (want * ATTN_SLOTS)) * ATTN_SLOTS)
+    return AttnPlan(chunk, -(-sk // chunk))
+
+
 def workspace(dev: torch.device, stream: int, floats: int, counters: int):
     """The GEMV's float32 partials and tile counters on ``dev`` and
     ``stream`` (the counters zero between calls)."""
@@ -200,11 +262,15 @@ def fused_qkv(
     q = torch.empty((b, n_heads, head_dim), dtype=x.dtype, device=dev)
     k = torch.empty((b, n_kv_heads, head_dim), dtype=x.dtype, device=dev)
     v = torch.empty((b, n_kv_heads, head_dim), dtype=x.dtype, device=dev)
+    plan = qkv_plan(n_heads, n_kv_heads, head_dim, d, _sm_count(dev))
+    stream = _stream()
+    ws, cnt = workspace(dev, stream, plan.ws_floats(1), plan.counters)
     err = _lib().repro_fused_qkv(
         x.data_ptr(), wq.data_ptr(), wk.data_ptr(), wv.data_ptr(),
         _ptr(bq), _ptr(bk), _ptr(bv), _ptr(positions),
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        b, d, n_heads, n_kv_heads, head_dim, int(rope), float(theta), _stream(),
+        b, d, n_heads, n_kv_heads, head_dim, int(rope), float(theta),
+        plan.kt_per, plan.split, ws.data_ptr(), cnt.data_ptr(), stream,
     )
     _raise_on(err, "fused_qkv")
     fused_qkv.launches += 1
@@ -245,8 +311,26 @@ def fused_decode_attention(
     if not use_kernel(q):
         return ref.decode_attention_ref(q, k, v, wo, bo, **kw)
     b, hq, hd = q.shape
-    sk, hkv = k.shape[1], k.shape[2]
     d = wo.shape[1]
+    dev = q.device
+    if d % 8:
+        raise ValueError(f"model width {d} is not a multiple of 8")
+    _check("wo", wo, (hq * hd, d), dev)
+    _check_opt("bo", bo, (d,), dev)
+    ctx = _attention_ctx(q, k, v, **kw)
+    y = torch.empty((b, d), dtype=q.dtype, device=dev)
+    _gemv(ctx, wo, None, bo, y, -1, "fused_decode_attention (output projection)")
+    fused_decode_attention.launches += 1
+    return y
+
+
+def _attention_ctx(q, k, v, *, q_positions, kv_valid_len=None, window=None, window_arr=None,
+                   kv_positions=None, causal=True) -> torch.Tensor:
+    """Launch 1 of :func:`fused_decode_attention` on CUDA tensors: the
+    attention's context (B, Hq*hd) in ``q.dtype``, the cache split into
+    :func:`attn_plan`'s chunks."""
+    b, hq, hd = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
     dev = q.device
     _check_batch(b, hq * hd)
     if hkv <= 0 or hq % hkv or hq // hkv not in (1, 2, 4, 8) or hd not in (32, 64, 128):
@@ -254,10 +338,6 @@ def fused_decode_attention(
     _check("q", q, (b, hq, hd), dev)
     _check("k", k, (b, sk, hkv, hd), dev)
     _check("v", v, (b, sk, hkv, hd), dev)
-    if d % 8:
-        raise ValueError(f"model width {d} is not a multiple of 8")
-    _check("wo", wo, (hq * hd, d), dev)
-    _check_opt("bo", bo, (d,), dev)
     _check("q_positions", q_positions, (b,), dev, torch.int32)
     kvp, kvp_stride = None, 0
     if kv_positions is not None:
@@ -278,17 +358,19 @@ def fused_decode_attention(
     elif window is not None:
         win_static = int(window)
     scale = ref.dtype_scalar(1.0 / (hd ** 0.5), q.dtype)
+    plan = attn_plan(b, hkv, sk, hd, _sm_count(dev))
+    stream = _stream()
+    ws, cnt = split_k_scratch("attn", dev, stream, plan.ws_floats(b, hkv, hq // hkv, hd),
+                              torch.float32, b * hkv)
     ctx = torch.empty((b, hq * hd), dtype=q.dtype, device=dev)
-    y = torch.empty((b, d), dtype=q.dtype, device=dev)
     err = _lib().repro_decode_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), kvp, kvp_stride,
         limit, limit_stride, q_positions.data_ptr(), win_ptr, win_static,
-        int(causal), scale, ctx.data_ptr(), b, sk, hq, hkv, hd, _stream(),
+        int(causal), scale, ctx.data_ptr(), b, sk, hq, hkv, hd,
+        plan.chunk, plan.splits, ws.data_ptr(), cnt.data_ptr(), stream,
     )
     _raise_on(err, "fused_decode_attention (attention)")
-    _gemv(ctx, wo, None, bo, y, -1, "fused_decode_attention (output projection)")
-    fused_decode_attention.launches += 1
-    return y
+    return ctx
 
 
 def fused_mlp(

@@ -15,7 +15,11 @@ odd geometries, conv-as-GEMM, and ResNet-18 on the card against the CPU,
 all bit for bit; the split-K paths of both redesigned kernels (split
 and unsplit grids, both weight layouts, olmo-1b and smoke widths, two
 calls giving equal bits); ``niu_refresh`` at odd shapes, within the gate of
-``chip_smoke.py`` (|diff| <= 1 on at most 1e-4 of the elements).
+``chip_smoke.py`` (|diff| <= 1 on at most 1e-4 of the elements).  The
+split attention at Sk = 1, 77 and 4096 (windows that mask whole chunks,
+ring caches, a lane with no slot to attend) and QKV on the split-K GEMV
+(head widths 16 to 256, with and without RoPE), each called twice for
+equal bits.
 """
 import importlib
 
@@ -166,6 +170,101 @@ def test_smoke_engine_on_card(gen):
     assert len(done) == 5 and all(len(r.out_tokens) == 7 for r in done)
     for fn in decode.KERNELS:
         assert fn.launches == cfg.n_layers * eng.decode_rounds > 0
+
+
+# ------------------------------------- the split attention and the QKV GEMV --
+
+QKV_HEADS = HEADS + [(16, 8, 256), (2, 1, 256), (6, 2, 16), (3, 1, 64)]
+
+
+@pytest.mark.parametrize("b", [1, 5, 8])
+@pytest.mark.parametrize("heads", QKV_HEADS)
+@pytest.mark.parametrize("rope", [True, False])
+@pytest.mark.parametrize("bias", [True, False])
+def test_fused_qkv_split_k_gemv(gen, b, heads, rope, bias):
+    """QKV on the split-K tensor-core GEMV: head widths 16 to 256 (a 256-wide
+    head spans two column tiles), with and without RoPE and bias; within the
+    bf16 tolerance of the plain version, the same bits on a second call, and
+    the tile counters back at zero."""
+    hq, hkv, hd = heads
+    d = 512
+    x = _rnd(gen, b, d)
+    w = [_rnd(gen, d, h * hd, scale=0.05) for h in (hq, hkv, hkv)]
+    bs = [_rnd(gen, h * hd, scale=0.05) if bias else None for h in (hq, hkv, hkv)]
+    pos = torch.randint(0, 8192, (b,), generator=gen, device="cuda", dtype=torch.int32)
+    kw = dict(n_heads=hq, n_kv_heads=hkv, head_dim=hd, rope=rope, theta=1e4)
+    decode.reset_launches()
+    got = decode.fused_qkv(x, *w, *bs, pos, **kw)
+    again = decode.fused_qkv(x, *w, *bs, pos, **kw)
+    want = ref.fused_qkv_ref(x, *w, *bs, pos, **kw)
+    torch.cuda.synchronize()
+    assert decode.fused_qkv.launches == 2
+    for g, a, t in zip(got, again, want):
+        torch.testing.assert_close(g, t, **TOL)
+        assert torch.equal(g, a)
+    _, cnt = common._SCRATCH["gemv", x.device, torch.cuda.current_stream().cuda_stream]
+    assert not cnt.any()
+
+
+SPLIT_ATTN_CASES = ["valid_len", "window_chunks", "window_dynamic", "ring", "ring_shared",
+                    "noncausal", "no_valid_slot", "ring_no_valid_slot"]
+
+
+@pytest.mark.parametrize("sk", [1, 77, 4096])
+@pytest.mark.parametrize("heads", HEADS)
+@pytest.mark.parametrize("case", SPLIT_ATTN_CASES)
+def test_fused_decode_attention_split_cache(gen, sk, heads, case):
+    """The cache split into chunks across blocks: windows that leave whole
+    chunks masked, ring caches, and a lane with no slot to attend (lane 0),
+    which must get the plain version's uniform mean over all slots; within
+    the bf16 tolerance, the same bits on a second call, counters back at
+    zero."""
+    hq, hkv, hd = heads
+    b, d = 8, 256
+    q = _rnd(gen, b, hq, hd)
+    k, v = _rnd(gen, b, sk, hkv, hd), _rnd(gen, b, sk, hkv, hd)
+    wo, bo = _rnd(gen, hq * hd, d, scale=0.05), _rnd(gen, d, scale=0.05)
+    vlen = torch.randint(1, sk + 1, (b,), generator=gen, device="cuda", dtype=torch.int32)
+    kw = dict(q_positions=vlen - 1, kv_valid_len=vlen)
+    if case == "window_chunks":
+        kw["window"] = 37
+    elif case == "window_dynamic":
+        kw["window_arr"] = torch.tensor(max(1, sk // 5), dtype=torch.int32, device="cuda")
+    elif case.startswith("ring"):
+        ring = torch.randint(-3, sk + 20, (b, sk), generator=gen, device="cuda", dtype=torch.int32)
+        if case == "ring_no_valid_slot":
+            ring[0] = -1
+        kw = dict(q_positions=vlen + 20,
+                  kv_positions=ring[0].contiguous() if case == "ring_shared" else ring)
+    elif case == "noncausal":
+        kw["causal"] = False
+    elif case == "no_valid_slot":
+        kw["kv_valid_len"] = torch.cat([vlen[:1] * 0, vlen[1:]])
+    decode.reset_launches()
+    got = decode.fused_decode_attention(q, k, v, wo, bo, **kw)
+    again = decode.fused_decode_attention(q, k, v, wo, bo, **kw)
+    want = ref.decode_attention_ref(q, k, v, wo, bo, **kw)
+    torch.cuda.synchronize()
+    assert decode.fused_decode_attention.launches == 2
+    torch.testing.assert_close(got, want, **TOL)
+    assert torch.equal(got, again)
+    _, cnt = common._SCRATCH["attn", q.device, torch.cuda.current_stream().cuda_stream]
+    assert not cnt.any()
+
+
+def test_attention_lane_with_no_slot_gets_the_mean_of_v(gen):
+    """At olmo-1b widths: a lane with no slot to attend (valid length 0)
+    attends uniformly to all Sk slots, as exp(-1e30 - -1e30) = 1 gives the
+    plain version; its context is the mean of V."""
+    b, hq, hd, sk = 8, 16, 128, 584
+    q, k, v = _rnd(gen, b, hq, hd), _rnd(gen, b, sk, hq, hd), _rnd(gen, b, sk, hq, hd)
+    vlen = torch.tensor([0] + [500] * (b - 1), dtype=torch.int32, device="cuda")
+    kw = dict(q_positions=vlen - 1, kv_valid_len=vlen)
+    ctx = decode._attention_ctx(q, k, v, **kw)
+    mean = v[0].float().mean(0).to(torch.bfloat16).reshape(-1)
+    torch.testing.assert_close(ctx[0], mean, **TOL)
+    eye = torch.eye(hq * hd, dtype=torch.bfloat16, device="cuda")
+    torch.testing.assert_close(ctx, ref.decode_attention_ref(q, k, v, eye, **kw), **TOL)
 
 
 # ------------------------------------------------------------- PU kernels --

@@ -295,3 +295,149 @@ def test_kill_switch(monkeypatch):
     assert not dispatch.attention_active(Cfg, torch.zeros(2, 3, 8))
     monkeypatch.setenv("REPRO_DECODE_KERNELS", "0")
     assert not dispatch.enabled(Cfg)
+
+
+# ------------------------------------------- the redesigned kernels' plans --
+
+PLAN_WIDTHS = {   # (B, Hq, Hkv, hd, d_model, Sk)
+    "olmo-1b": (8, 16, 16, 128, 2048, 584),
+    "smoke": (4, 4, 4, 32, 128, 64),
+    "hd256": (8, 16, 8, 256, 3840, 4096),
+}
+
+
+@pytest.mark.parametrize("width", sorted(PLAN_WIDTHS))
+@pytest.mark.parametrize("sms", [132, 114])
+def test_attn_plan_splits_the_cache_into_whole_chunks(width, sms):
+    b, hq, hkv, hd, _, sk = PLAN_WIDTHS[width]
+    for s in (1, 15, 77, sk, 4096):
+        plan = decode.attn_plan(b, hkv, s, hd, sms)
+        # whole chunks of ATTN_SLOTS slots whose K rows fit the kernel's shared memory
+        assert plan.chunk % decode.ATTN_SLOTS == 0 and 0 < plan.chunk <= decode.ATTN_MAX_SLOTS
+        assert plan.chunk * hd * 2 <= decode.ATTN_CHUNK_BYTES
+        # every slot in exactly one chunk, none empty
+        assert (plan.splits - 1) * plan.chunk < s <= plan.splits * plan.chunk
+        # as many chunks as the aim of ATTN_BLOCKS_PER_SM blocks per SM needs, no more
+        if plan.chunk > decode.ATTN_SLOTS and plan.chunk * 2 * hd * 2 <= decode.ATTN_CHUNK_BYTES:
+            assert b * hkv * plan.splits >= decode.ATTN_BLOCKS_PER_SM * sms * 0.5
+        assert plan.ws_floats(b, hkv, hq // hkv, hd) == b * hkv * plan.splits * (hq // hkv) * (hd + 2)
+    if width == "olmo-1b":      # several blocks for every SM, where one per (lane, kv-head) gave 128
+        plan = decode.attn_plan(b, hkv, sk, hd, sms)
+        assert plan == {132: decode.AttnPlan(48, 13), 114: decode.AttnPlan(64, 10)}[sms]
+        assert b * hkv * plan.splits >= 8 * sms
+
+
+QKV_WIDTHS = dict(PLAN_WIDTHS, hd16=(8, 6, 2, 16, 256, 0), hd64=(8, 6, 2, 64, 256, 0))
+
+
+@pytest.mark.parametrize("width", sorted(QKV_WIDTHS))
+@pytest.mark.parametrize("sms", [132, 114])
+def test_qkv_column_tiles_keep_rope_pairs_together(width, sms):
+    b, hq, hkv, hd, d, _ = QKV_WIDTHS[width]
+    tiles = decode.qkv_tiles(hq, hkv, hd)
+    for n_cols, t in zip((hq * hd, hkv * hd, hkv * hd), tiles):
+        cols = [c for tl in range(t) for c in decode.qkv_columns(tl, hd) if c < n_cols]
+        # the tiles of one matrix cover each of its columns once and no other's
+        assert sorted(cols) == list(range(n_cols))
+        for tl in range(t):
+            mine = [c for c in decode.qkv_columns(tl, hd) if c < n_cols]
+            assert len(set(c // hd for c in mine)) <= max(1, decode.GEMV_N // hd)
+            # both columns of every RoPE pair lie in this tile, at local columns
+            # c and c + min(hd, GEMV_N) / 2 as the kernel's epilogue reads them
+            half, lhalf = hd // 2, min(hd, decode.GEMV_N) // 2
+            full = decode.qkv_columns(tl, hd)
+            for lc, c in enumerate(full):
+                if c < n_cols and c % hd < half:
+                    assert full[lc + lhalf] == c + half
+    plan = decode.qkv_plan(hq, hkv, hd, d, sms)
+    assert plan.tiles == sum(tiles)
+    assert plan == decode.gemv_plan(sum(tiles) * decode.GEMV_N, d, sms)
+    if width == "olmo-1b":
+        assert tiles == (16, 16, 16) and plan.split == 2 and plan.blocks == 96
+
+
+def _split_schedule(q, k, v, wo, bo, *, chunk, q_positions, kv_valid_len=None, window=None,
+                    window_arr=None, kv_positions=None, causal=True):
+    """A plain PyTorch model of the attention kernel's schedule: chunks of
+    ``chunk`` slots, each with its own softmax state (m, l, acc) and p
+    rounded to bf16 for the PV product; a chunk with no slot to attend
+    skipped (l = 0); the partials merged in split order; a lane with no
+    slot at all given the mean of V.  Returns (y, chunks skipped)."""
+    b, hq, hd = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    scale = ref.dtype_scalar(1.0 / hd ** 0.5, q.dtype)
+    qs = (q * scale).float().reshape(b, hkv, g, hd)
+    valid = ref.decode_mask(b, sk, q.device, q_positions=q_positions, kv_valid_len=kv_valid_len,
+                            window=window, window_arr=window_arr, kv_positions=kv_positions,
+                            causal=causal)
+    parts, skipped = [], 0
+    for c0 in range(0, sk, chunk):
+        ok = valid[:, c0:c0 + chunk]
+        s = torch.einsum("bkgd,bskd->bkgs", qs, k[:, c0:c0 + chunk].float())
+        s = torch.where(ok[:, None, None], s, ref.NEG)
+        m = s.amax(-1)
+        p = torch.exp(s - m[..., None])
+        acc = torch.einsum("bkgs,bskd->bkgd", p.to(torch.bfloat16).float(),
+                           v[:, c0:c0 + chunk].float())
+        live = ok.any(-1)[:, None, None]
+        skipped += int((~live).sum())
+        parts.append((torch.where(live, m, ref.NEG), torch.where(live, p.sum(-1), 0.0), acc))
+    m = torch.full_like(parts[0][0], ref.NEG)
+    for ms, ls, _ in parts:
+        m = torch.where(ls > 0, torch.maximum(m, ms), m)
+    num, den = torch.zeros_like(parts[0][2]), torch.zeros_like(parts[0][1])
+    for ms, ls, acc in parts:
+        c = torch.exp(ms - m)
+        den = den + torch.where(ls > 0, ls * c, 0.0)
+        num = num + torch.where((ls > 0)[..., None], acc * c[..., None], 0.0)
+    ctx = num / torch.clamp(den, min=1e-30)[..., None]
+    mean = v.float().sum(1)[:, :, None, :] / sk                 # p = 1 on every slot
+    ctx = torch.where((den > 0)[..., None], ctx, mean).to(q.dtype).reshape(b, hq * hd)
+    y = ctx @ wo.to(q.dtype)
+    return (y if bo is None else y + bo.to(q.dtype)), skipped
+
+
+_SPLIT_CASES = {
+    "valid_len": dict(kv_valid_len="vlen"),
+    "window_static": dict(kv_valid_len="vlen", window=7),
+    "window_dynamic": dict(kv_valid_len="vlen", window_arr=9),
+    "ring": dict(kv_positions="ring"),
+    "ring_shared": dict(kv_positions="ring0"),
+    "noncausal": dict(causal=False),
+    "no_valid_slot": dict(kv_valid_len="vlen0"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_SPLIT_CASES))
+def test_split_schedule_matches_jax_kernel(arrays, case):
+    """The flash-decoding schedule of ``csrc/decode.cu::attn_kernel``
+    (chunks of 8 slots here, so 5 per lane) against the JAX Pallas kernel
+    in interpret mode and the port's plain version: skipping a chunk no
+    lane slot of it may attend, and merging in split order, changes
+    nothing beyond the bf16 tolerance; a lane with no slot to attend
+    keeps the plain version's uniform mean over all slots."""
+    a = dict(arrays, vlen0=np.asarray([0, 21, 40], np.int32))
+    kw = dict(_SPLIT_CASES[case])
+    conv = {"jax": jnp.asarray, "torch": torch.from_numpy}
+    args = {}
+    for to, f in conv.items():
+        c = dict(kw, q_positions=f(a["qpos"]))
+        if "kv_valid_len" in c:
+            c["kv_valid_len"] = f(a[c["kv_valid_len"]])
+        if c.get("kv_positions") == "ring":
+            c["kv_positions"] = f(a["ring"])
+        elif c.get("kv_positions") == "ring0":
+            c["kv_positions"] = f(np.ascontiguousarray(a["ring"][0]))
+        if "window_arr" in c:
+            c["window_arr"] = f(np.asarray(c["window_arr"], np.int32))
+        args[to] = c
+    names = ["q", "k", "v", "wo", "bo"]
+    want = jk.fused_decode_attention(*[_jax(a, n) for n in names], block_s=8, **args["jax"])
+    t = [_torch(a, n) for n in names]
+    got, skipped = _split_schedule(*t, chunk=8, **args["torch"])
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (B, D)
+    _close(got, want)
+    _close(got, ref.decode_attention_ref(*t, **args["torch"]))
+    if case in ("valid_len", "window_static", "window_dynamic", "no_valid_slot"):
+        assert skipped > 0      # whole chunks masked: the kernel issues no load for them

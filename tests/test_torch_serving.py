@@ -141,3 +141,30 @@ def test_launcher_refuses_cpu_fallback(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--arch", "olmo-1b", "--smoke"])
+
+
+def test_temperature_sampling_matches_softmax_and_jax_categorical():
+    """The engine's temperature draw follows softmax(logits / T): its token
+    counts pass a chi-square test against those probabilities and a
+    two-sample test against ``jax.random.categorical`` (the reference's
+    sampler) on the same logits, while the counts of a draw at the wrong
+    temperature fail the first test.  Seeds are fixed, so the verdicts
+    are too."""
+    stats = pytest.importorskip("scipy.stats")
+    temp, n, rows = 0.8, 40_000, 4
+    logits = np.asarray([1.5, 0.2, -0.7, 2.1, 0.0, -2.0, 1.1, 0.6], np.float32)
+    eng = _engine(True, temperature=temp)
+    eng._gen.manual_seed(1234)
+    batch = torch.from_numpy(np.tile(logits, (n // rows, 1)))
+    toks = torch.cat([eng._sample_device(batch) for _ in range(rows)]).numpy()
+    assert toks.shape == (n,) and toks.dtype == np.int32
+    counts = np.bincount(toks, minlength=logits.size)
+    p = np.exp((logits.astype(np.float64) - logits.max()) / temp)
+    p /= p.sum()
+    assert stats.chisquare(counts, n * p).pvalue > 1e-3
+    jtoks = np.asarray(jax.random.categorical(
+        jax.random.PRNGKey(0), jax.numpy.asarray(logits) / temp, shape=(n,)))
+    jcounts = np.bincount(jtoks, minlength=logits.size)
+    assert stats.chi2_contingency(np.stack([counts, jcounts])).pvalue > 1e-3
+    wrong = np.exp(logits.astype(np.float64) - logits.max())   # T = 1: the test has power
+    assert stats.chisquare(counts, n * wrong / wrong.sum()).pvalue < 1e-9
