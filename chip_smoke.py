@@ -19,28 +19,34 @@ Phases, in order; any failure raises and the script exits non-zero:
    output projection).
 2a. PU kernel phase, on a seeded full-width ResNet-50 (224x224x3 int8
    image): ``int8_gemm`` and ``im2col`` against their plain versions bit
-   for bit at the operands of every call of one forward (53 GEMMs with
-   the weights as the forward's (M, N) view and as (N, M), each called
-   twice for equal bits; 17 im2col, also in bf16 and float32), plus the
-   GEMM epilogue cases (bias on/off, shift -3/0/7/16, ReLU, residual) and
-   split-K cases (``SPLIT_K_CASES``: P = 1, 7, 49, a bias that wraps the
-   int32 sum, both layouts);
+   for bit at the operands of every call of one forward (53 GEMMs on the
+   patch matrix with the weights as the forward's (M, N) view and as
+   (N, M), each called twice for equal bits; the 19 the forward sends to
+   the GEMM's conv mode, on the map itself, twice; the 17 patch matrices,
+   also in bf16 and float32), plus the GEMM epilogue cases (bias on/off,
+   shift -3/0/7/16, ReLU, residual) and split-K cases (``SPLIT_K_CASES``:
+   P = 1, 7, 49, a bias that wraps the int32 sum, both layouts);
    ``niu_refresh`` on every weight matrix with three seeds, |diff| <= 1
-   on at most ``NIU_MAX_RATE`` of the elements.  Times of kernel, plain
-   version and library yardstick (``torch._int_mm`` + the epilogue in
-   torch ops; the ``unfold`` chain; none for the NIU's RNG), each
-   distinct call timed cold and summed over one forward (one NIU round);
-   one line per distinct GEMM shape with its tile, split, time,
-   ``torch._int_mm`` time and bound.
+   on at most ``NIU_MAX_RATE`` of the elements; one ``niu_plan`` over all
+   of them: its max |q| equal to the plain version's, and its rounds
+   (three shared seeds, one seed per matrix) bit for bit.  Times of
+   kernel, plain version and library yardstick (``torch._int_mm`` + the
+   epilogue in torch ops; the ``unfold`` chain; none for the NIU's RNG),
+   each distinct call timed cold and summed over one forward (one NIU
+   round), and with ``graph_ms``; one line per distinct GEMM shape with
+   its tile, split, time, ``torch._int_mm`` time and bound.  The NIU's
+   bound counts the instructions per element in the SASS of its fast path
+   (``tools/niu_sass.py``) at the SM issue rate.
 2b. ResNet phase: launch counts zeroed just before one forward and read
-   just after (53 GEMMs, 17 im2col); the int8 trunk equal bit for bit
+   just after (53 GEMMs, 1 im2col: conv1); the int8 trunk equal bit for bit
    to the CPU's plain forward on the same weights, logits within
    ``RESNET_RTOL`` / ``RESNET_ATOL`` with the same top-5; the float
    reference correlating above 0.7; median ms per image over
    ``FORWARDS`` forwards; a torch.profiler trace of one forward (device
    busy, idle share, top device ops, fewer copy kernels than GEMMs: the
-   weights are not re-laid out); one NIU round over every weight matrix,
-   its launches counted.
+   weights are not re-laid out); the NIU path: one ``niu_plan`` over every
+   weight matrix and one round, its launches counted (1 each), the host
+   clock of a round (median of ``ROUNDS``) and a profiled round.
 3. Model step: full-width olmo-1b prefill + one decode step with and
    without the kernels; logits finite and within ``LOGIT_ATOL``.
 4. Serve phase: ``repro_torch.launch.serve``'s engine at full width,
@@ -70,6 +76,7 @@ Phases, in order; any failure raises and the script exits non-zero:
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import json
 import math
 import statistics
@@ -109,14 +116,22 @@ REPLACES = {
     "niu_refresh": "src/repro/kernels/niu.py:132",
 }
 # The paper's INT8 ResNet-50 at full width: 224x224x3 int8 image, 1000
-# classes, seeded weights; 53 convolutions, 17 of them through im2col.
-RESNET, IMAGE, N_GEMM, N_IM2COL = 50, 224, 53, 17
+# classes, seeded weights; 53 convolutions, 17 of them with a patch matrix
+# (k > 1), of which the GEMM's conv mode gathers 16 itself: im2col runs
+# once a forward (conv1), and the conv mode 19 times (the 16 3x3 convs and
+# the 3 strided 1x1 convs).
+RESNET, IMAGE, N_GEMM, N_IM2COL, N_IM2COL_LAUNCHES, N_CONV_MODE = 50, 224, 53, 17, 1, 19
 FORWARDS = 30               # timed forwards; the median is kept
+ROUNDS = 10                 # timed NIU rounds; the median is kept
 # split-K int8_gemm shapes (P, N, M) beside the forward's: P = 1, 7, 49
 SPLIT_K_CASES = ((1, 512, 4608), (7, 2048, 512), (49, 512, 4608), (49, 2048, 1024), (7, 100, 2304))
 NIU_SEEDS = (0, 12345, -987654321)
 NIU_MAX_RATE = 1e-4         # NIU kernel vs plain: |diff| <= 1 on at most this share
-NIU_OPS = 43                # float32 operations per element (two Gaussians + the noise model)
+# The NIU's work per element, as PR 12 counted it: float32 operations of
+# the two Gaussians and the noise model, at the float32 rate.  The bound
+# now counts the kernel's SASS instructions per element (tools/niu_sass.py)
+# at the SM issue rate; this count is printed beside it.
+NIU_OPS_OLD = 43
 # ResNet-50 logits, card against the CPU (same torch code, plain versions
 # on the CPU): the int8 trunk is equal bit for bit, the float32 fc product
 # differs only in summation order.  On an H100 the logits (|logit| up to
@@ -134,12 +149,15 @@ def card_line() -> str:
 
 
 def card_rates(name: str) -> dict:
-    """HBM bytes/s and dense peak operations/s by type, from the data sheets."""
+    """HBM bytes/s and dense peak operations/s by type, from the data
+    sheets; ``issue``: thread instructions/s the SMs can issue (4 warp
+    instructions a cycle per SM, 128 threads, at the boost clock)."""
     if "PCIe" in name:
-        return dict(bytes=2.0e12, bf16=756e12, int8=1513e12, f32=51e12)
+        return dict(bytes=2.0e12, bf16=756e12, int8=1513e12, f32=51e12, issue=114 * 128 * 1.755e9)
     if "NVL" in name:
-        return dict(bytes=3.9e12, bf16=835e12, int8=1671e12, f32=60e12)
-    return dict(bytes=3.35e12, bf16=989e12, int8=1979e12, f32=67e12)     # H100 SXM
+        return dict(bytes=3.9e12, bf16=835e12, int8=1671e12, f32=60e12, issue=132 * 128 * 1.785e9)
+    return dict(bytes=3.35e12, bf16=989e12, int8=1979e12, f32=67e12,     # H100 SXM
+                issue=132 * 128 * 1.98e9)
 
 
 def bound(rates: dict, nb: float, ops: float = 0.0, kind: str = "bf16"):
@@ -396,8 +414,9 @@ def resnet_setup(torch):
 def capture_pu_calls(torch, params, img):
     """One forward with ``ops.conv2d_int8`` wrapped: the operands that each
     convolution hands to the GEMM (the patch matrix, the weights as their
-    (k*k*Cin, Cout) view, the residual as a (P, N) map) and to im2col, as
-    the main path gives them."""
+    (k*k*Cin, Cout) view, the residual as a (P, N) map), the convolution's
+    own arguments and whether the main path sends it to the GEMM's conv
+    mode (``conv``), and the operands of each im2col with a patch matrix."""
     from repro_torch.kernels import ops
     from repro_torch.models import resnet
 
@@ -406,11 +425,14 @@ def capture_pu_calls(torch, params, img):
 
     def rec_conv(x, w4d, bias=None, *, k, stride=1, pad=0, shift=0, relu=False, residual=None):
         if not (k == 1 and pad == 0):
-            cols.append(dict(img=x, k=k, stride=stride, pad=pad))
+            cols.append(dict(img=x, k=k, stride=stride, pad=pad,
+                             conv_mode=ops.takes_conv_mode(x, w4d, k, stride, pad)))
         cout = w4d.shape[-1]
         gemms.append(dict(a=ops.im2col(x, k, stride, pad), w=w4d.reshape(-1, cout), layout="mn",
                           bias=bias, shift=shift, relu=relu,
-                          residual=None if residual is None else residual.reshape(-1, cout)))
+                          residual=None if residual is None else residual.reshape(-1, cout),
+                          conv=dict(img=x, w4d=w4d, k=k, stride=stride, pad=pad, residual=residual),
+                          conv_mode=ops.takes_conv_mode(x, w4d, k, stride, pad)))
         return conv(x, w4d, bias, k=k, stride=stride, pad=pad, shift=shift, relu=relu,
                     residual=residual)
 
@@ -421,6 +443,7 @@ def capture_pu_calls(torch, params, img):
         ops.conv2d_int8 = conv
     torch.cuda.synchronize()
     assert len(gemms) == N_GEMM and len(cols) == N_IM2COL, (len(gemms), len(cols))
+    assert sum(c["conv_mode"] for c in gemms) == N_CONV_MODE
     return gemms, cols
 
 
@@ -444,14 +467,12 @@ def pu_kernel_phase(torch, timer, rates, params, img):
     every call of a ResNet-50 forward (and the GEMM's epilogue cases),
     niu_refresh on every weight matrix under the mismatch gate; times of
     kernel, plain version and library yardstick; bounds."""
-    import importlib
-
     import torch.nn.functional as F
 
-    from repro_torch.kernels import niu as kniu
     from repro_torch.kernels import ops, ref
 
     kgemm = importlib.import_module("repro_torch.kernels.int8_gemm")
+    kniu = importlib.import_module("repro_torch.kernels.niu")
     kim = importlib.import_module("repro_torch.kernels.im2col")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     gemms, cols = capture_pu_calls(torch, params, img)
@@ -485,6 +506,27 @@ def pu_kernel_phase(torch, timer, rates, params, img):
     print(f"[pu] int8_gemm: the {len(gemms)} forward calls equal the plain version bit for bit "
           f"with the weights as the main path's (M, N) view and as (N, M), and a second call "
           f"gives equal bits", flush=True)
+
+    def conv(c):       # the conv mode, on the convolution's own arguments
+        v = c["conv"]
+        return kgemm.int8_conv_gemm(v["img"], v["w4d"], c["bias"], c["shift"], v["residual"],
+                                    k=v["k"], stride=v["stride"], pad=v["pad"],
+                                    relu=c["relu"]).reshape(-1, c["w"].shape[1])
+
+    def main(c):       # the GEMM as the main path launches it
+        return conv(c) if c["conv_mode"] else kernel(c)
+
+    conv_calls = [c for c in gemms if c["conv_mode"]]
+    for i, c in enumerate(conv_calls):
+        v = c["conv"]
+        what = f"int8_gemm conv mode call {i} map {tuple(v['img'].shape)} k={v['k']} s={v['stride']}"
+        got = conv(c)
+        err = max(err, exact(got, plain(c), what))
+        assert torch.equal(got, conv(c)), f"{what}: two calls differ"
+    print(f"[pu] int8_gemm conv mode: the {len(conv_calls)} calls the main path sends to it "
+          f"({sum(c['conv']['k'] == 3 for c in conv_calls)} 3x3, "
+          f"{sum(c['conv']['k'] == 1 for c in conv_calls)} strided 1x1) equal the plain "
+          f"version (im2col + GEMM) bit for bit, and a second call gives equal bits", flush=True)
     g = torch.Generator(device="cuda").manual_seed(3)
     cases = 0
     for c in (gemms[1], next(c for c in gemms if c["residual"] is not None)):
@@ -547,26 +589,29 @@ def pu_kernel_phase(torch, timer, rates, params, img):
     exact(libs[1](), kernel(gemms[1]), "torch._int_mm yardstick")
     lib_of = {id(c): f for c, f in zip(gemms, libs)}
     def gemm_key(c):
-        return tuple(c["a"].shape), tuple(c["w"].shape), c["residual"] is not None, c["relu"]
+        return (tuple(c["a"].shape), tuple(c["w"].shape), c["residual"] is not None, c["relu"],
+                c["conv_mode"])
 
     times, seen = per_call_times(
         timer, gemms, gemm_key,
-        dict(ms=kernel, plain_ms=plain, library_ms=lambda c: lib_of[id(c)](),
+        dict(ms=main, plain_ms=plain, library_ms=lambda c: lib_of[id(c)](),
              int_mm_alone_ms=lambda c: lib_of[id(c)].int_mm()),
     )
+    times["graph_ms"] = graph_ms(torch, [lambda c=c: main(c) for c in gemms]) * len(gemms)
     print(f"[pu] int8_gemm: torch._int_mm alone (no epilogue) {times.pop('int_mm_alone_ms')} ms "
           f"over the forward's calls", flush=True)
 
-    def gemm_bytes(c):
+    def gemm_bytes(c):     # the conv mode reads the map, not a patch matrix
         p, n = c["a"].shape[0], c["bias"].shape[0]
-        return nbytes(c["a"], c["w"], c["bias"], c["residual"]) + p * n
+        a = c["conv"]["img"] if c["conv_mode"] else c["a"]
+        return nbytes(a, c["w"], c["bias"], c["residual"]) + p * n
 
     for k, t in seen.items():      # one line per distinct GEMM of the forward
         c = next(c for c in gemms if gemm_key(c) == k)
         (p, m), n = c["a"].shape, c["bias"].shape[0]
         plan = kgemm.gemm_plan(p, n, m, sms)
         b_ms, b_by = bound(rates, gemm_bytes(c), 2 * p * n * m, "int8")
-        print(f"[pu] int8_gemm shape P={p} N={n} M={m} residual={k[2]} calls="
+        print(f"[pu] int8_gemm shape P={p} N={n} M={m} residual={k[2]} conv_mode={k[4]} calls="
               f"{sum(gemm_key(x) == k for x in gemms)}: tile {kgemm.GEMM_TILE} split {plan.split} "
               f"({plan.kt_per} k-tiles each, {plan.blocks} blocks) kernel_ms={t['ms']} "
               f"int_mm_alone_ms={t['int_mm_alone_ms']} bound_ms={b_ms} ({b_by})", flush=True)
@@ -592,12 +637,25 @@ def pu_kernel_phase(torch, timer, rates, params, img):
         return xp.unfold(0, k, st).unfold(1, k, st).permute(0, 1, 3, 4, 2).reshape(-1, k * k * x.shape[2])
 
     assert torch.equal(unfold(cols[1]), kim.im2col(cols[1]["img"], cols[1]["k"], cols[1]["stride"], cols[1]["pad"]))
-    times, _ = per_call_times(
-        timer, cols, lambda c: (tuple(c["img"].shape), c["k"], c["stride"], c["pad"]),
-        dict(ms=lambda c: kim.im2col(c["img"], c["k"], c["stride"], c["pad"]),
-             plain_ms=lambda c: ref.im2col_ref(c["img"], c["k"], c["stride"], c["pad"]),
-             library_ms=unfold),
-    )
+
+    def im2col_times(calls):
+        return per_call_times(
+            timer, calls, lambda c: (tuple(c["img"].shape), c["k"], c["stride"], c["pad"]),
+            dict(ms=lambda c: kim.im2col(c["img"], c["k"], c["stride"], c["pad"]),
+                 plain_ms=lambda c: ref.im2col_ref(c["img"], c["k"], c["stride"], c["pad"]),
+                 library_ms=unfold),
+        )[0]
+
+    print(f"[pu] im2col alone over all {len(cols)} patch matrices of a forward (PR 16's row): "
+          f"{im2col_times(cols)}", flush=True)
+    # the main path's calls: the convolutions the GEMM's conv mode does not gather
+    cols = [c for c in cols if not c["conv_mode"]]
+    assert len(cols) == N_IM2COL_LAUNCHES, len(cols)
+    times = im2col_times(cols)
+    copies = [dict(c, img=c["img"].clone()) for c in cols for _ in range(GRAPH_COPIES)]
+    times["graph_ms"] = graph_ms(torch, [
+        lambda c=c: kim.im2col(c["img"], c["k"], c["stride"], c["pad"]) for c in copies
+    ] * GRAPH_PASSES) * len(cols)
     nb = 0
     for c in cols:
         h, w_, ch = c["img"].shape
@@ -619,39 +677,61 @@ def pu_kernel_phase(torch, timer, rates, params, img):
           f"{'bit for bit equal' if bad == 0 else f'{bad} differ (rate {rate})'}, max |diff| {worst} "
           f"(gate: <= 1 on at most {NIU_MAX_RATE})", flush=True)
     assert worst <= 1 and rate <= NIU_MAX_RATE, (worst, rate)
+    # the round's main path: one plan over every matrix, one launch a round
+    plan = kniu.niu_plan(mats)
+    amax = torch.stack([q.to(torch.int32).abs().amax() for q, _ in mats])
+    assert torch.equal(plan.amax, amax), "niu_plan: max |q| differs from the plain version"
+    seeds = torch.tensor([NIU_SEEDS[i % len(NIU_SEEDS)] + i for i in range(len(mats))],
+                         dtype=torch.int32, device="cuda")
+    plan_worst = 0
+    for seed in (*NIU_SEEDS, seeds):
+        outs = plan.refresh(seed)
+        for m, ((q, e), got) in enumerate(zip(mats, outs)):
+            s = seed[m] if isinstance(seed, torch.Tensor) else seed
+            d = (got.to(torch.int32) - ops.niu_refresh_ref(q, e, s).to(torch.int32)).abs().max()
+            plan_worst = max(plan_worst, d.item())
+    print(f"[pu] niu_plan: max |q| of the {len(mats)} matrices equal to the plain version; "
+          f"refresh over all of them, {len(NIU_SEEDS)} shared seeds and one seed per matrix: "
+          f"max |diff| {plan_worst} against the plain version (bit for bit)", flush=True)
+    assert plan_worst == 0, plan_worst
     n_el = sum(q.numel() for q, _ in mats)
-    t_bound, by = bound(rates, 2 * n_el, NIU_OPS * n_el, "f32")
-    # the kernel is timed alone, on arguments prepared as the wrapper
-    # prepares them; the wrapper's whole call (its reduction for w_max and
-    # the scalars included) is timed beside it
-    calls = []
-    for q, e in mats:
-        scale = torch.exp2(e.to(torch.float32))
-        w_max = q.to(torch.float32).abs().amax() * scale
-        calls.append(dict(q=q, e=e, scale=scale, w_max=w_max, out=torch.empty_like(q),
-                          seed=torch.tensor(1, dtype=torch.int32, device="cuda")))
-    niu_kw = dict(prog_noise_scale=0.1, read_noise_scale=0.02, drift=1.0)
-    kniu.launch(calls[0]["q"], calls[0]["out"], calls[0]["scale"], calls[0]["seed"], calls[0]["w_max"], **niu_kw)
-    assert torch.equal(calls[0]["out"], ops.niu_refresh(calls[0]["q"], calls[0]["e"], 1)), "niu launch alone"
-    times, _ = per_call_times(
-        timer, calls, lambda c: tuple(c["q"].shape),
-        dict(ms=lambda c: kniu.launch(c["q"], c["out"], c["scale"], c["seed"], c["w_max"], **niu_kw),
-             plain_ms=lambda c: ops.niu_refresh_ref(c["q"], c["e"], 1),
-             wrapper_ms=lambda c: ops.niu_refresh(c["q"], c["e"], 1)),
-    )
-    print(f"[pu] niu_refresh: the wrapper's whole call, over the round: {times.pop('wrapper_ms')} ms",
+    sass = niu_sass_count()
+    t_bound, by = bound(rates, 2 * n_el, sass["fast_path"] * n_el, "issue")
+    print(f"[pu] niu_refresh bound: {sass['fast_path']} SASS instructions per element on the fast "
+          f"path ({sass['mufu']} MUFU; {sass['total']} in the probe with its slow paths) at "
+          f"{rates['issue']} instructions/s: {t_bound} ms ({by}; the bytes alone "
+          f"{bound(rates, 2 * n_el)[0]} ms); PR 12's count, {NIU_OPS_OLD} float32 operations per "
+          f"element at the float32 rate: {bound(rates, 2 * n_el, NIU_OPS_OLD * n_el, 'f32')[0]} ms",
           flush=True)
+    copies = [kniu.niu_plan([(q.clone(), e) for q, e in mats]) for _ in range(GRAPH_COPIES)]
     rows["niu_refresh"] = dict(
-        max_abs_err=worst, bound_ms=t_bound, bound_by=by,
+        max_abs_err=max(worst, plan_worst), bound_ms=t_bound, bound_by=by,
+        ms=timer(lambda: plan.refresh(1)),
+        graph_ms=graph_ms(torch, [lambda p=p: p.refresh(1) for p in copies] * GRAPH_PASSES),
+        plain_ms=timer(lambda: [ops.niu_refresh_ref(q, e, 1) for q, e in mats]),
         library_ms=None,       # no PyTorch call computes the counter-hash RNG
-        **times,
     )
-    what = {"int8_gemm": f"the {N_GEMM} calls of one forward", "im2col": f"the {N_IM2COL} calls of "
-            f"one forward", "niu_refresh": f"one round over {len(mats)} matrices"}
+    del copies
+    what = {"int8_gemm": f"the {N_GEMM} calls of one forward", "im2col": f"the {N_IM2COL_LAUNCHES} "
+            f"call of one forward", "niu_refresh": f"one round over {len(mats)} matrices"}
     for name, r in rows.items():
-        print(f"[pu] {name} ({what[name]}): max_abs_err={r['max_abs_err']} kernel_ms={r['ms']} plain_ms={r['plain_ms']} "
+        print(f"[pu] {name} ({what[name]}): max_abs_err={r['max_abs_err']} kernel_ms={r['ms']} "
+              f"graph_ms={r['graph_ms']} plain_ms={r['plain_ms']} "
               f"library_ms={r['library_ms']} bound_ms={r['bound_ms']} ({r['bound_by']})", flush=True)
     return rows
+
+
+def niu_sass_count() -> dict:
+    """``tools/niu_sass.py``'s count of the NIU kernel's SASS instructions
+    per element (loaded from its file: ``tools`` is no package)."""
+    import importlib.util
+
+    from repro_torch.kernels import build
+
+    spec = importlib.util.spec_from_file_location("niu_sass", ROOT / "tools" / "niu_sass.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.count(build)
 
 
 def niu_matrices(params):
@@ -665,9 +745,10 @@ def resnet_phase(torch, rates, params, img):
     ms per image, a profile of one forward, and one NIU round."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    from repro_torch.kernels import common, ops
+    from repro_torch.kernels import common
     from repro_torch.models import resnet
 
+    kniu = importlib.import_module("repro_torch.kernels.niu")
     resnet.forward_int8(RESNET, params, img)
     torch.cuda.synchronize()
     common.reset_launches()                     # count the main path's run only
@@ -675,7 +756,7 @@ def resnet_phase(torch, rates, params, img):
     torch.cuda.synchronize()
     launches = common.launch_counts()
     print(f"[resnet] launches in one forward: {launches}", flush=True)
-    assert launches["int8_gemm"] == N_GEMM and launches["im2col"] == N_IM2COL, launches
+    assert launches["int8_gemm"] == N_GEMM and launches["im2col"] == N_IM2COL_LAUNCHES, launches
     assert logits.shape == (1000,) and logits.dtype == torch.float32 and torch.isfinite(logits).all().item()
 
     cpu = {name: {k: v.to("cpu") for k, v in layer.items()} for name, layer in params.items()}
@@ -727,24 +808,36 @@ def resnet_phase(torch, rates, params, img):
           flush=True)
     assert len(copies) < N_GEMM, copies
 
+    # the NIU path: a plan over every weight matrix (once per pristine
+    # weight set), then one launch a round
     mats = niu_matrices(params)
-    common.reset_launches()                     # the NIU round's own count
-    t0 = time.perf_counter()
-    noisy = [ops.niu_refresh(q, e, 7) for q, e in mats]
+    common.reset_launches()
+    plan = kniu.niu_plan(mats)
+    noisy = plan.refresh(7)
     torch.cuda.synchronize()
-    round_ms = (time.perf_counter() - t0) * 1e3
-    niu_launches = common.launch_counts()["niu_refresh"]
-    assert niu_launches == len(mats) and all(n.shape == q.shape for n, (q, _) in zip(noisy, mats))
+    counts = common.launch_counts()
+    niu_launches = counts["niu_refresh"]
+    assert niu_launches == 1 and counts["niu_plan"] == 1, counts
+    assert all(n.shape == q.shape and n.dtype == torch.int8 for n, (q, _) in zip(noisy, mats))
+    rounds = []
+    for seed in range(ROUNDS):
+        t0 = time.perf_counter()
+        plan.refresh(seed)
+        torch.cuda.synchronize()
+        rounds.append((time.perf_counter() - t0) * 1e3)
+    round_ms = statistics.median(rounds)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         with record_function("niu_round"):
-            [ops.niu_refresh(q, e, 8) for q, e in mats]
+            plan.refresh(8)
             torch.cuda.synchronize()
     window, busy, by_name = device_busy(torch, prof, "niu_round")
-    kernel_us = sum(us for n, us in by_name.items() if "niu_kernel" in n)
+    kernel_us = sum(us for n, us in by_name.items() if "niu_refresh_kernel" in n)
     print(f"[niu] one NIU round over {len(mats)} weight matrices ({sum(q.numel() for q, _ in mats)} "
-          f"int8 weights): {round_ms} ms on the host clock, launches {niu_launches}; under the "
-          f"profiler {window / 1e3} ms, device busy {busy / 1e3} ms, of it niu_kernel "
-          f"{kernel_us / 1e3} ms", flush=True)
+          f"int8 weights) through one plan: {round_ms} ms on the host clock (median of {ROUNDS} "
+          f"rounds, min {min(rounds)}, max {max(rounds)}), launches {niu_launches} a round (the "
+          f"plan's max |q|: {counts['niu_plan']} launch, once); under the profiler {window / 1e3} "
+          f"ms, device busy {busy / 1e3} ms, of it niu_refresh_kernel {kernel_us / 1e3} ms; device "
+          f"ops {sorted(by_name)}", flush=True)
     return dict(launches={**launches, "niu_refresh": niu_launches}, ms=ms)
 
 

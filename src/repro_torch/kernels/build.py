@@ -54,10 +54,16 @@ SOURCES: Dict[str, Tuple[tuple, dict]] = {
         "repro_int8_gemm": (
             _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
         ),
+        "repro_int8_conv_gemm": (
+            _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+        ),
         "repro_im2col": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     }),
     "niu": (("-fmad=false",), {
-        "repro_niu_refresh": (_P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _I, _I, _P),
+        "repro_niu_absmax": (_P, _P, _I, _I, _P),
+        "repro_niu_refresh": (
+            _P, _P, _P, _P, ctypes.c_uint, _I, _I, _F, _F, _F, _I, _I, _P,
+        ),
     }),
 }
 

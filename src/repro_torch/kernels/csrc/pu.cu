@@ -49,6 +49,16 @@
 //   and the counter back to 0, so the workspace stays zero between calls
 //   without a memset.  The split comes from
 //   repro_torch/kernels/int8_gemm.py::gemm_plan.
+// - the conv mode (repro_int8_conv_gemm): A is not a patch matrix but the
+//   HWC map itself, and each 16-byte cp.async of an A row computes its
+//   source from (p, k): p -> (oy, ox), k -> (ki, kj, ci), the map's pixel
+//   (oy * s - pad + ki, ox * s - pad + kj), zero-filled (source size 0)
+//   outside the map (ConvRows).  A thread's rows are the same in every
+//   k-tile, so their (oy * s - pad, ox * s - pad) are computed once; the
+//   (ki, kj, ci) of a chunk by a shift where C is a power of two.  With
+//   C % 16 == 0 a chunk never straddles two pixels.  The patch matrix
+//   (9x the map for a 3x3 conv) is never written or read: this is
+//   im2col folded into the GEMM (implicit GEMM).
 // The epilogue runs in registers: bias, shift_round (half away from zero;
 // a negative shift is a left shift), clip, residual, clip, ReLU, int8
 // store.  `shift` is read from device memory, so a forward never syncs to
@@ -273,6 +283,54 @@ struct KNBytes {
   }
 };
 
+// The conv mode's geometry: patch row p, column k of the implicit patch
+// matrix is map[iy, ix, ci] with (oy, ox) = (p / OW, p % OW),
+// k = (ki * ks + kj) * C + ci, iy = oy * stride - pad + ki,
+// ix = ox * stride - pad + kj, and 0 outside the (H, W) map.
+struct ConvGeom {
+  int H, W, C, ks, stride, pad, OW;
+  int c_shift;       // log2(C) where C is a power of two, else -1
+};
+
+// A rows of the conv mode: R patch rows x 64 bytes of k per stage, gathered
+// from the HWC map, one 16-byte cp.async per chunk (C % 16 == 0).  y0 / x0:
+// each of the thread's rows' top-left pixel, fixed over the k-loop.
+template <int R, int NT>
+struct ConvRows {
+  static constexpr int kChunks = R * kBK / 16;
+  static constexpr int kPer = (kChunks + NT - 1) / NT;
+  int y0[kPer], x0[kPer];
+
+  __device__ __forceinline__ void init(const ConvGeom& g, int P, int r0) {
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int q = threadIdx.x + i * NT;
+      if (q >= kChunks) break;
+      const int p = r0 + (q >> 2);
+      const int oy = p / g.OW, ox = p - oy * g.OW;
+      // a row past P reads as zero: its pixel lies far above the map
+      y0[i] = p < P ? oy * g.stride - g.pad : -(1 << 28);
+      x0[i] = ox * g.stride - g.pad;
+    }
+  }
+  __device__ __forceinline__ void async(const int8_t* img, const ConvGeom& g, int M, int k0,
+                                        uint32_t dst) const {
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int q = threadIdx.x + i * NT;
+      if (q >= kChunks) break;
+      const int r = q >> 2, c = (q & 3) * 16, k = k0 + c;
+      const int seg = g.c_shift >= 0 ? k >> g.c_shift : k / g.C;
+      const int ci = k - seg * g.C;
+      const int ki = seg / g.ks, kj = seg - ki * g.ks;
+      const int iy = y0[i] + ki, ix = x0[i] + kj;
+      const bool ok = k < M && (unsigned)iy < (unsigned)g.H && (unsigned)ix < (unsigned)g.W;
+      cp_async16(dst + r * kRowB + c, ok ? img + ((size_t)iy * g.W + ix) * g.C + ci : img,
+                 ok ? 16 : 0);
+    }
+  }
+};
+
 // XLA's int32 semantics of quant.shift_round: wrapping adds, a left shift
 // by >= 32 gives 0, an arithmetic right shift by >= 32 fills with the sign.
 __device__ __forceinline__ int shift_round(int acc, int s) {
@@ -288,16 +346,18 @@ __device__ __forceinline__ int shift_round(int acc, int s) {
 }
 
 // Grid (P tiles, N tiles, splits).  kVec: rows of both operands are
-// 16-byte aligned; kKN: B is (M, N).  kt_per k-tiles per split; with more
-// than one split, ws holds each tile's BM * BN int32 sums and
+// 16-byte aligned; kKN: B is (M, N); kConv: A is the HWC map of geometry
+// geom (the conv mode; with kVec and kKN).  kt_per k-tiles per split; with
+// more than one split, ws holds each tile's BM * BN int32 sums and
 // counters one int per tile (all zero on entry, zero on exit).
-template <class C, bool kVec, bool kKN>
+template <class C, bool kVec, bool kKN, bool kConv>
 __global__ void __launch_bounds__(C::kThreads)
 int8_gemm_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ B,
                  const int* __restrict__ bias, const int* __restrict__ shift,
                  const int8_t* __restrict__ res, int8_t* __restrict__ out,
                  int P, int N, int M, int relu, int kt_per, int* __restrict__ ws,
-                 int* __restrict__ counters) {
+                 int* __restrict__ counters, ConvGeom geom) {
+  static_assert(!kConv || (kVec && kKN), "the conv mode takes the aligned (M, N) path");
   constexpr int BM = C::BM, BN = C::BN, NT = C::kThreads, MI = C::kMI, NI = C::kNI;
   extern __shared__ __align__(16) int8_t smem[];
   __shared__ int s_last;
@@ -314,13 +374,16 @@ int8_gemm_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ B,
   KRows<BM, NT> ra;
   KRows<BN, NT> rb;
   KNBytes<BN, NT> cb;
+  ConvRows<BM, NT> ca;
+  if constexpr (kConv) ca.init(geom, P, p0);
 
   auto a_of = [&](int st) { return smem + st * C::kStageBytes; };
   auto b_of = [&](int st) { return smem + st * C::kStageBytes + BM * kRowB; };
   auto kb_of = [&](int i) { return smem + kStages * C::kStageBytes + (i & 1) * BN * kRowB; };
   auto issue = [&](int kt, int st) {   // the asynchronous part of a stage
     if constexpr (kVec) {
-      KRows<BM, NT>::async(A, P, M, p0, kt * kBK, smem_u32(a_of(st)));
+      if constexpr (kConv) ca.async(A, geom, M, kt * kBK, smem_u32(a_of(st)));
+      else KRows<BM, NT>::async(A, P, M, p0, kt * kBK, smem_u32(a_of(st)));
       if constexpr (kKN) KNTile<BN, NT>::async(B, M, N, n0, kt * kBK, smem_u32(b_of(st)));
       else KRows<BN, NT>::async(B, N, M, n0, kt * kBK, smem_u32(b_of(st)));
     }
@@ -520,13 +583,22 @@ __global__ void im2col_elem_kernel(const T* __restrict__ img, T* __restrict__ ou
 
 inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
-template <class C, bool kVec, bool kKN>
+// The split of int8_gemm.py::gemm_plan: kt_per k-tiles in each of split
+// pieces, and the scratch a split needs.
+inline bool bad_split(int M, int split, int kt_per, void* ws, void* counters) {
+  if (kt_per <= 0) return true;
+  const int kt_all = (M + kBK - 1) / kBK;
+  return split != (kt_all + kt_per - 1) / kt_per ||
+         (split > 1 && (ws == nullptr || counters == nullptr));
+}
+
+template <class C, bool kVec, bool kKN, bool kConv = false>
 int launch_gemm(const void* A, const void* B, const void* bias, const void* shift,
                 const void* res, void* out, int P, int N, int M, int relu, int split,
-                int kt_per, void* ws, void* counters, cudaStream_t s) {
+                int kt_per, void* ws, void* counters, cudaStream_t s, ConvGeom g = {}) {
   const dim3 grid((P + C::BM - 1) / C::BM, (N + C::BN - 1) / C::BN, split);
   if (grid.y > 65535 || grid.z > 65535) return (int)cudaErrorInvalidValue;
-  auto kernel = int8_gemm_kernel<C, kVec, kKN>;
+  auto kernel = int8_gemm_kernel<C, kVec, kKN, kConv>;
   const int smem = kVec && kKN ? C::kSmemRaw : C::kSmem;
   static bool configured[kMaxDevices] = {};   // the attributes, once per device
   int dev = 0;
@@ -541,7 +613,7 @@ int launch_gemm(const void* A, const void* B, const void* bias, const void* shif
   if (err != cudaSuccess) return (int)err;
   kernel<<<grid, C::kThreads, smem, s>>>(
       (const int8_t*)A, (const int8_t*)B, (const int*)bias, (const int*)shift,
-      (const int8_t*)res, (int8_t*)out, P, N, M, relu, kt_per, (int*)ws, (int*)counters);
+      (const int8_t*)res, (int8_t*)out, P, N, M, relu, kt_per, (int*)ws, (int*)counters, g);
   return (int)cudaGetLastError();
 }
 
@@ -556,11 +628,8 @@ extern "C" {
 int repro_int8_gemm(const void* A, const void* B, const void* bias, const void* shift,
                     const void* res, void* out, int P, int N, int M, int relu, int b_kn,
                     int split, int kt_per, void* ws, void* counters, void* stream) {
-  if (P <= 0 || N <= 0 || M <= 0 || shift == nullptr || kt_per <= 0)
-    return (int)cudaErrorInvalidValue;
-  const int kt_all = (M + kBK - 1) / kBK;
-  if (split != (kt_all + kt_per - 1) / kt_per) return (int)cudaErrorInvalidValue;
-  if (split > 1 && (ws == nullptr || counters == nullptr)) return (int)cudaErrorInvalidValue;
+  if (P <= 0 || N <= 0 || M <= 0 || shift == nullptr) return (int)cudaErrorInvalidValue;
+  if (bad_split(M, split, kt_per, ws, counters)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool vec = M % 16 == 0 && aligned16(A) && aligned16(B) && (!b_kn || N % 16 == 0);
 #define REPRO_GEMM(V, KN) \
@@ -573,6 +642,34 @@ int repro_int8_gemm(const void* A, const void* B, const void* bias, const void* 
   if (b_kn) REPRO_GEMM(false, true);
   REPRO_GEMM(false, false);
 #undef REPRO_GEMM
+}
+
+// The conv mode: out (OH*OW, N) <- post(patches(img) . B^T + bias) with img
+// the (H, W, C) int8 map and B the (ks*ks*C, N) weights; the patch matrix
+// is gathered by the GEMM's A loads and never formed.  C and N multiples
+// of 16, img and B 16-byte aligned.  split and kt_per come from
+// int8_gemm.py::gemm_plan(OH*OW, N, ks*ks*C).
+int repro_int8_conv_gemm(const void* img, const void* B, const void* bias, const void* shift,
+                         const void* res, void* out, int H, int W, int C, int ks, int stride,
+                         int pad, int N, int relu, int split, int kt_per, void* ws,
+                         void* counters, void* stream) {
+  if (H <= 0 || W <= 0 || C <= 0 || ks <= 0 || stride <= 0 || pad < 0 || N <= 0 ||
+      shift == nullptr || H + 2 * pad < ks || W + 2 * pad < ks)
+    return (int)cudaErrorInvalidValue;
+  if (C % 16 != 0 || N % 16 != 0 || !aligned16(img) || !aligned16(B))
+    return (int)cudaErrorInvalidValue;
+  const int OH = (H + 2 * pad - ks) / stride + 1, OW = (W + 2 * pad - ks) / stride + 1;
+  const long long P = (long long)OH * OW, M = (long long)ks * ks * C;
+  if (P > 0x7FFFFFFFLL || M > 0x7FFFFFFFLL || (long long)H * W * C > 0x7FFFFFFFLL)
+    return (int)cudaErrorInvalidValue;
+  if (bad_split((int)M, split, kt_per, ws, counters)) return (int)cudaErrorInvalidValue;
+  int c_shift = -1;
+  if ((C & (C - 1)) == 0)
+    for (c_shift = 0; (1 << c_shift) < C; ++c_shift) {}
+  const ConvGeom g{H, W, C, ks, stride, pad, OW, c_shift};
+  return launch_gemm<Tile64, true, true, true>(img, B, bias, shift, res, out, (int)P, N,
+                                               (int)M, relu, split, kt_per, ws, counters,
+                                               static_cast<cudaStream_t>(stream), g);
 }
 
 // out (OH*OW, k*k*C) <- patches of img (H, W, C), elements of esize bytes.

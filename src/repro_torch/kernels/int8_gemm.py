@@ -20,10 +20,15 @@ activation operand, residual and output.
 shape alone; the split sums and tile counters live in
 ``common.split_k_scratch``, zero between calls.
 
+:func:`int8_conv_gemm` is the same kernel in its conv mode: it reads the
+HWC map in place of the patch matrix and gathers each patch row's 16-byte
+chunks itself (im2col folded into the operand loads, an implicit GEMM),
+for the convolutions :func:`conv_mode` admits.
+
 A CUDA tensor launches the kernel, a CPU tensor takes the plain version
 (``ref.int8_gemm_ref``); a CUDA call the kernel cannot take raises.
-``launches`` on :func:`int8_gemm` counts the calls of either function
-that went to the kernel.
+``launches`` on :func:`int8_gemm` counts the calls of any of these
+functions that went to the kernel.
 """
 from __future__ import annotations
 
@@ -142,6 +147,64 @@ def int8_gemm_pn(
         ws.data_ptr(), cnt.data_ptr(), stream,
     )
     raise_on(err, "int8_gemm")
+    int8_gemm.launches += 1
+    return out
+
+
+def conv_mode(c: int, cout: int, k: int, stride: int, pad: int) -> bool:
+    """Whether a convolution's GEMM gathers its own patches from the map
+    (the kernel's conv mode) instead of reading a patch matrix: each
+    16-byte chunk of a patch row lies in one pixel (``C % 16 == 0``) and
+    the weights' rows are 16-byte aligned (``Cout % 16 == 0``).  A 1x1
+    stride-1 unpadded conv reads the map as it lies and needs no gather."""
+    return c % 16 == 0 and cout % 16 == 0 and not (k == 1 and stride == 1 and pad == 0)
+
+
+def int8_conv_gemm(
+    img: torch.Tensor,                     # (H, W, Cin) int8 map
+    w4d: torch.Tensor,                     # (k, k, Cin, Cout) int8
+    bias: Optional[torch.Tensor] = None,   # (Cout,) int32
+    shift: IntLike = 0,
+    residual: Optional[torch.Tensor] = None,   # (OH, OW, Cout) int8
+    *,
+    k: int,
+    stride: int = 1,
+    pad: int = 0,
+    relu: bool = False,
+) -> torch.Tensor:
+    """Convolution as one implicit GEMM -> (OH, OW, Cout) int8: the
+    kernel's A loads gather the patches from the map (:func:`conv_mode`
+    must hold, and both operands be 16-byte aligned), so no patch matrix
+    is formed.  The same function as ``ref.conv2d_int8_ref``, bit for
+    bit."""
+    if not use_kernel(img):
+        return ref.conv2d_int8_ref(img, w4d, bias, stride, pad, shift, relu, residual)
+    h, w, c = img.shape
+    cout = w4d.shape[-1]
+    if not conv_mode(c, cout, k, stride, pad) or h + 2 * pad < k or w + 2 * pad < k:
+        raise ValueError(f"the conv mode does not take a {tuple(img.shape)} map, k={k}, "
+                         f"s={stride}, p={pad}, Cout={cout}")
+    dev = img.device
+    _check("img", img, (h, w, c), dev, torch.int8)
+    _check("w4d", w4d, (k, k, c, cout), dev, torch.int8)
+    if img.data_ptr() % 16 or w4d.data_ptr() % 16:
+        raise ValueError("the conv mode needs a map and weights aligned to 16 bytes")
+    oh = (h + 2 * pad - k) // stride + 1
+    ow = (w + 2 * pad - k) // stride + 1
+    shift_t = device_int(shift, "shift", dev)
+    out = torch.empty((oh, ow, cout), dtype=torch.int8, device=dev)
+    plan = gemm_plan(oh * ow, cout, k * k * c, _sm_count(dev))
+    stream = cuda_stream()
+    ws, cnt = workspace(dev, stream, plan)
+    from repro_torch.kernels import build
+
+    err = build.load("pu").repro_int8_conv_gemm(
+        img.data_ptr(), w4d.data_ptr(), _check("bias", bias, (cout,), dev, torch.int32),
+        shift_t.data_ptr(), _check("residual", residual, (oh, ow, cout), dev, torch.int8),
+        out.data_ptr(), h, w, c, k, stride, pad, cout, int(relu), plan.split, plan.kt_per,
+        ws.data_ptr(), cnt.data_ptr(), stream,
+    )
+    raise_on(err, "int8_conv_gemm")
     int8_gemm.launches += 1
     return out
 

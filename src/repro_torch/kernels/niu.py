@@ -17,15 +17,24 @@ torch on the CPU cannot shift a ``uint32`` tensor.  Every float step is
 float32 and rounds where XLA's does; Python float constants are rounded to
 float32 first, as XLA rounds a weak-typed scalar.  The CUDA kernel's
 ``logf`` / ``cosf`` may differ from the CPU's by an ulp, which can flip a
-rounding, so the kernel is held to this version by a mismatch rate, not
-bit for bit (``chip_smoke.py``).
+rounding, so the kernel is held to this version by a mismatch rate
+(``chip_smoke.py``), though on an H100 it has matched bit for bit.
 
-``launches`` on :func:`niu_refresh` counts its calls that went to the
-kernel.
+A round goes over every weight matrix of a model in one launch:
+:func:`niu_plan` takes the pristine matrices once (their table, one output
+buffer, each matrix's max |q| by one launch) and :meth:`NiuPlan.refresh`
+draws a round.  :func:`niu_refresh` is a one-matrix plan.
+
+``launches`` on :func:`niu_refresh` counts the rounds that went to the
+refresh kernel, and on :func:`niu_plan` the plans whose max |q| the card
+computed.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
+from typing import List, Optional, Sequence, Tuple
+
 import torch
 
 from repro_torch.core.quant import IntLike
@@ -106,6 +115,127 @@ def niu_refresh_ref(
     return torch.clamp(torch.round(w_noisy / scale), -128, 127).to(torch.int8)
 
 
+NIU_THREADS = 256        # threads per block (csrc/niu.cu kThreads)
+NIU_PER_THREAD = 16      # consecutive elements per thread (kPer)
+NIU_BLOCK = NIU_THREADS * NIU_PER_THREAD
+NIU_MAX_MATS = 8192      # matrices per plan (kMaxMats: their first blocks fill shared memory)
+NIU_ALIGN = 16           # bytes: each output starts 16-byte aligned in the plan's buffer
+
+
+def niu_first_blocks(ns: Sequence[int]) -> List[int]:
+    """The kernel's grid over matrices of ``ns`` elements: matrix ``m``
+    owns blocks ``[first[m], first[m + 1])``, each of ``NIU_BLOCK``
+    elements; the last entry is the grid's size."""
+    first = [0]
+    for n in ns:
+        first.append(first[-1] + -(-n // NIU_BLOCK))
+    return first
+
+
+def niu_block_matrix(first: Sequence[int], b: int) -> int:
+    """The matrix that owns block ``b``: the kernel's binary search for the
+    last ``m`` with ``first[m] <= b`` (``first`` without its last entry)."""
+    lo, hi = 0, len(first) - 1
+    while lo < hi:
+        mid = (lo + hi + 1) >> 1
+        if first[mid] <= b:
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo
+
+
+@dataclasses.dataclass(eq=False)
+class NiuPlan:
+    """One NIU round's launch over a fixed set of pristine weight matrices
+    (:func:`niu_plan`).  ``outs`` are views of one int8 buffer that every
+    :meth:`refresh` overwrites; the pristine matrices are only read."""
+    mats: List[Tuple[torch.Tensor, IntLike]]     # (q, exp) as given
+    outs: List[torch.Tensor]                     # noisy payloads, one per matrix
+    table: Optional[torch.Tensor] = None         # (n_mats, 4) int64: q, out, n, first block
+    exps: Optional[torch.Tensor] = None          # (n_mats,) int32
+    amax: Optional[torch.Tensor] = None          # (n_mats,) int32: max |q| of each matrix
+    blocks: int = 0                              # the grid
+
+    def refresh(
+        self,
+        seed: IntLike,                           # one int, or (n_mats,) integers
+        *,
+        prog_noise_scale: float = 0.1,
+        read_noise_scale: float = 0.02,
+        drift: float = 1.0,
+    ) -> List[torch.Tensor]:
+        """One NIU round over every matrix, in one launch on the card: a
+        fresh noise instance in ``outs``, which it returns.  A seed tensor
+        gives each matrix its own seed."""
+        kw = dict(prog_noise_scale=prog_noise_scale, read_noise_scale=read_noise_scale,
+                  drift=drift)
+        n = len(self.mats)
+        if isinstance(seed, torch.Tensor) and (seed.numel() != n or seed.is_floating_point()):
+            raise ValueError(f"seed must hold {n} integers, got {seed.dtype} {tuple(seed.shape)}")
+        if self.table is None:
+            for m, ((q, e), out) in enumerate(zip(self.mats, self.outs)):
+                s = seed.reshape(-1)[m] if isinstance(seed, torch.Tensor) else seed
+                out.copy_(niu_refresh_ref(q, e, s, **kw))
+            return self.outs
+        seeds = None
+        if isinstance(seed, torch.Tensor):
+            if seed.device != self.table.device:
+                raise ValueError(f"seed must be on {self.table.device}, got {seed.device}")
+            seeds = seed.reshape(-1).to(torch.int32)
+        from repro_torch.kernels import build
+
+        err = build.load("niu").repro_niu_refresh(
+            self.table.data_ptr(), self.exps.data_ptr(), self.amax.data_ptr(),
+            None if seeds is None else seeds.data_ptr(), 0 if seeds is not None else int(seed) & _M32,
+            n, self.blocks, prog_noise_scale, read_noise_scale, drift,
+            int(drift != 1.0), int(read_noise_scale > 0.0), cuda_stream(),
+        )
+        raise_on(err, "niu_refresh")
+        niu_refresh.launches += 1
+        return self.outs
+
+
+def niu_plan(mats: Sequence[Tuple[torch.Tensor, IntLike]]) -> NiuPlan:
+    """A plan over pristine ``(q, exp)`` weight matrices, each a contiguous
+    (R, C) int8 tensor: the outputs in one buffer and, on the card, the
+    table of matrices and each matrix's max |q|, computed here once by one
+    launch (the NIU's range is programmed once, not per round)."""
+    mats = [(q, e) for q, e in mats]
+    if not mats:
+        raise ValueError("a plan needs at least one matrix")
+    dev = mats[0][0].device
+    for q, _ in mats:
+        if q.device != dev or q.dtype != torch.int8 or q.dim() != 2 or not q.is_contiguous():
+            raise ValueError(f"each q must be a contiguous (R, C) int8 tensor on {dev}, got "
+                             f"{q.dtype} {tuple(q.shape)} on {q.device}")
+        if not 0 < q.numel() < 2 ** 31:
+            raise ValueError(f"the kernel takes 1 to 2**31 - 1 elements, got {tuple(q.shape)}")
+    ns = [q.numel() for q, _ in mats]
+    offs = [0]
+    for n in ns:
+        offs.append(offs[-1] + -(-n // NIU_ALIGN) * NIU_ALIGN)
+    buf = torch.empty(offs[-1], dtype=torch.int8, device=dev)
+    outs = [buf[o: o + q.numel()].view(q.shape) for o, (q, _) in zip(offs, mats)]
+    if not use_kernel(mats[0][0]):
+        return NiuPlan(mats, outs)
+    if len(mats) > NIU_MAX_MATS:
+        raise ValueError(f"a plan takes at most {NIU_MAX_MATS} matrices, got {len(mats)}")
+    first = niu_first_blocks(ns)
+    table = torch.tensor([[q.data_ptr(), o.data_ptr(), n, f]
+                          for (q, _), o, n, f in zip(mats, outs, ns, first)], dtype=torch.int64)
+    exps = torch.stack([device_int(e, "exp", dev) for _, e in mats])
+    plan = NiuPlan(mats, outs, table.to(dev), exps,
+                   torch.zeros(len(mats), dtype=torch.int32, device=dev), first[-1])
+    from repro_torch.kernels import build
+
+    err = build.load("niu").repro_niu_absmax(
+        plan.table.data_ptr(), plan.amax.data_ptr(), len(mats), plan.blocks, cuda_stream())
+    raise_on(err, "niu_plan")
+    niu_plan.launches += 1
+    return plan
+
+
 def niu_refresh(
     q: torch.Tensor,                       # (R, C) int8 pristine payload
     exp: IntLike,                          # () pow2 exponent
@@ -115,42 +245,12 @@ def niu_refresh(
     read_noise_scale: float = 0.02,
     drift: float = 1.0,
 ) -> torch.Tensor:
-    """One NIU round: a fresh noise instance on an int8 weight tile -> int8."""
+    """One NIU round: a fresh noise instance on an int8 weight tile -> int8
+    (through a one-matrix :func:`niu_plan` on the card)."""
     kw = dict(prog_noise_scale=prog_noise_scale, read_noise_scale=read_noise_scale, drift=drift)
     if not use_kernel(q):
         return niu_refresh_ref(q, exp, seed, **kw)
-    dev = q.device
-    if q.dtype != torch.int8 or q.dim() != 2 or not q.is_contiguous():
-        raise ValueError(f"q must be a contiguous (R, C) int8 tensor, got {q.dtype} {tuple(q.shape)}")
-    r, c = q.shape
-    if not 0 < r * c < 2 ** 31:
-        raise ValueError(f"the kernel takes 1 to 2**31 - 1 elements, got ({r}, {c})")
-    seed_t = device_int(seed, "seed", dev)
-    # the scale as the plain version takes it, so both use the same value
-    scale = torch.exp2(device_int(exp, "exp", dev).to(torch.float32))
-    # w_max over the whole (unpadded) tile, before the kernel, as niu.py:129
-    # takes it; aminmax in int8, since |-128| does not fit int8
-    lo, hi = torch.aminmax(q)
-    w_max = torch.maximum(-lo.to(torch.float32), hi.to(torch.float32)) * scale
-    out = torch.empty_like(q)
-    launch(q, out, scale, seed_t, w_max, **kw)
-    niu_refresh.launches += 1
-    return out
+    return niu_plan([(q, exp)]).refresh(seed, **kw)[0]
 
 
-def launch(q, out, scale, seed, w_max, *, prog_noise_scale, read_noise_scale, drift):
-    """The kernel alone, on arguments :func:`niu_refresh` has checked and
-    prepared (``scale``, ``w_max`` () float32 and ``seed`` () int32 on the
-    card); ``chip_smoke.py`` times it apart from that preparation."""
-    from repro_torch.kernels import build
-
-    r, c = q.shape
-    err = build.load("niu").repro_niu_refresh(
-        q.data_ptr(), out.data_ptr(), scale.data_ptr(), seed.data_ptr(), w_max.data_ptr(),
-        r, c, prog_noise_scale, read_noise_scale, drift,
-        int(drift != 1.0), int(read_noise_scale > 0.0), cuda_stream(),
-    )
-    raise_on(err, "niu_refresh")
-
-
-count_launches(niu_refresh)
+count_launches(niu_refresh, niu_plan)

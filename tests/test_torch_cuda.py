@@ -19,7 +19,10 @@ calls giving equal bits); ``niu_refresh`` at odd shapes, within the gate of
 split attention at Sk = 1, 77 and 4096 (windows that mask whole chunks,
 ring caches, a lane with no slot to attend) and QKV on the split-K GEMV
 (head widths 16 to 256, with and without RoPE), each called twice for
-equal bits.
+equal bits.  The GEMM's conv mode against ``im2col`` + ``int8_gemm_pn``
+at every ResNet-18/50 conv geometry it takes and odd ones, and the NIU
+plan against ``niu_refresh_ref`` over ResNet-50's 54 weight matrices and
+odd ones (a misaligned view, one element), seed per matrix, bit for bit.
 """
 import importlib
 
@@ -414,3 +417,134 @@ def test_resnet18_on_card_equals_cpu(gen):
     lg = resnet.forward_int8(18, params, img).cpu()
     lc = resnet.forward_int8(18, cpu, img.cpu())
     torch.testing.assert_close(lg, lc, rtol=1e-5, atol=1e-2)
+
+
+# ------------------------- the NIU plan and the GEMM's conv mode (redesign) --
+
+niu_mod = importlib.import_module("repro_torch.kernels.niu")
+
+
+def _conv_geometries(variant, image=224):
+    """(H, Cin, Cout, k, stride, pad) of each distinct conv of a ResNet."""
+    from repro_torch.models import resnet
+
+    specs, seen = resnet.resnet_conv_specs(variant), []
+
+    def conv(spec, hw, res):
+        g = (hw, spec.cin, spec.cout, spec.k, spec.stride, spec.pad)
+        if g not in seen:
+            seen.append(g)
+        return (hw + 2 * spec.pad - spec.k) // spec.stride + 1
+
+    hw = conv(specs[0], image, None)
+    hw = (hw + 2 - 3) // 2 + 1          # the 3x3 / 2 max-pool
+    resnet._walk(specs, hw, hw, conv)
+    return seen
+
+
+CONV_MODE_GEOMS = sorted({g for v in (18, 50) for g in _conv_geometries(v)
+                          if kgemm.conv_mode(g[1], g[2], g[3], g[4], g[5])}) + [
+    (9, 16, 32, 3, 2, 1), (15, 48, 16, 3, 1, 1), (13, 32, 64, 5, 2, 2), (10, 32, 64, 1, 2, 0),
+    (7, 16, 16, 3, 3, 0), (3, 64, 48, 3, 1, 0), (6, 1024, 16, 1, 1, 1), (11, 16, 2064, 3, 1, 1),
+]
+
+
+def test_conv_mode_geometries_split_and_do_not():
+    sms = 132
+    plans = [kgemm.gemm_plan(((h + 2 * p - k) // s + 1) ** 2, co, k * k * ci, sms)
+             for h, ci, co, k, s, p in CONV_MODE_GEOMS]
+    assert any(p.split > 1 for p in plans) and any(p.split == 1 for p in plans)
+
+
+@pytest.mark.parametrize("h,cin,cout,k,stride,pad", CONV_MODE_GEOMS)
+def test_conv_mode_equals_im2col_and_gemm(gen, h, cin, cout, k, stride, pad):
+    """The conv mode against the patch matrix (``im2col``) through
+    ``int8_gemm_pn``, bit for bit, with and without bias, residual and
+    ReLU; a second call gives equal bits; the split workspace stays zero."""
+    img, w4d = _i8(gen, h, h, cin), _i8(gen, k, k, cin, cout)
+    oh = (h + 2 * pad - k) // stride + 1
+    bias = torch.randint(-2 ** 20, 2 ** 20, (cout,), generator=gen, device="cuda", dtype=torch.int32)
+    res = _i8(gen, oh, oh, cout)
+    patches, wmat = ops.im2col(img, k, stride, pad), w4d.reshape(-1, cout)
+    for b, r, relu, shift in ((None, None, False, 0), (bias, None, True, 7), (bias, res, True, 9),
+                              (None, res, False, -2)):
+        common.reset_launches()
+        got = kgemm.int8_conv_gemm(img, w4d, b, shift, r, k=k, stride=stride, pad=pad, relu=relu)
+        again = kgemm.int8_conv_gemm(img, w4d, b, shift, r, k=k, stride=stride, pad=pad, relu=relu)
+        assert common.launch_counts()["int8_gemm"] == 2
+        want = int8_gemm_pn(patches, wmat, b, shift, None if r is None else r.reshape(-1, cout),
+                            relu=relu, w_layout="mn").reshape(oh, oh, cout)
+        assert torch.equal(got, want), (b is not None, r is not None, relu, shift)
+        assert torch.equal(got, again)
+        assert torch.equal(ops.conv2d_int8(img, w4d, b, k=k, stride=stride, pad=pad, shift=shift,
+                                           relu=relu, residual=r), got)
+    ws, cnt = common._SCRATCH["int8_gemm", img.device, torch.cuda.current_stream().cuda_stream]
+    assert not ws.any() and not cnt.any()
+
+
+def test_conv2d_int8_routes_to_the_conv_mode_where_it_applies(gen):
+    img = _i8(gen, 16, 16, 64)
+    for w4d, im2col_launches in ((_i8(gen, 3, 3, 64, 64), 0), (_i8(gen, 3, 3, 64, 24), 1)):
+        common.reset_launches()
+        ops.conv2d_int8(img, w4d, k=3, stride=1, pad=1)
+        assert common.launch_counts()["im2col"] == im2col_launches
+        assert common.launch_counts()["int8_gemm"] == 1
+    # a map that is not 16-byte aligned takes the patch matrix
+    buf = _i8(gen, 16 * 16 * 64 + 1)
+    odd = buf[1:].view(16, 16, 64)
+    w4d = _i8(gen, 3, 3, 64, 64)
+    common.reset_launches()
+    got = ops.conv2d_int8(odd, w4d, k=3, stride=1, pad=1, shift=8)
+    assert common.launch_counts()["im2col"] == 1
+    assert torch.equal(got, ref.conv2d_int8_ref(odd, w4d, None, 1, 1, 8))
+    with pytest.raises(ValueError):
+        kgemm.int8_conv_gemm(odd, w4d, k=3, stride=1, pad=1)
+    with pytest.raises(ValueError):
+        kgemm.int8_conv_gemm(img, _i8(gen, 3, 3, 64, 24), k=3, stride=1, pad=1)
+
+
+def _niu_mats(gen):
+    """The 54 weight matrices of the seeded ResNet-50, a misaligned view,
+    one element, and odd shapes."""
+    from repro_torch.models import resnet
+
+    params = resnet.init_params(50, 0, "cuda")
+    mats = [(p["w"].q.reshape(-1, p["w"].q.shape[-1]), p["w"].exp) for p in params.values()]
+    buf = _i8(gen, 5000, lo=-127)
+    e = torch.tensor(-6, dtype=torch.int32, device="cuda")
+    mats += [(buf[3: 3 + 37 * 41].view(37, 41), e), (_i8(gen, 1, 1, lo=-127), e),
+             (_i8(gen, 7, 4609, lo=-127), torch.tensor(2, dtype=torch.int32, device="cuda")),
+             (_i8(gen, 1000, 3, lo=-127), e)]
+    return mats
+
+
+def test_niu_plan_equals_plain_per_matrix(gen):
+    mats = _niu_mats(gen)
+    assert len(mats) == 58 and mats[54][0].data_ptr() % 16 == 3
+    common.reset_launches()
+    plan = niu_mod.niu_plan(mats)
+    assert common.launch_counts()["niu_plan"] == 1
+    amax = torch.stack([q.to(torch.int32).abs().amax() for q, _ in mats])
+    assert torch.equal(plan.amax, amax)
+    seeds = torch.randint(-2 ** 31, 2 ** 31 - 1, (len(mats),), generator=gen, device="cuda",
+                          dtype=torch.int32)
+    seeds[0] = -1
+    for kw in ({}, dict(prog_noise_scale=2.0, read_noise_scale=1.0, drift=0.8),
+               dict(read_noise_scale=0.0)):
+        for seed in (seeds, 12345):
+            common.reset_launches()
+            outs = plan.refresh(seed, **kw)
+            assert common.launch_counts()["niu_refresh"] == 1
+            for m, ((q, e), got) in enumerate(zip(mats, outs)):
+                s = seeds[m] if isinstance(seed, torch.Tensor) else seed
+                assert torch.equal(got, ops.niu_refresh_ref(q, e, s, **kw)), (m, tuple(q.shape), kw)
+
+
+def test_niu_plan_two_refreshes_give_equal_bits(gen):
+    mats = _niu_mats(gen)
+    plan = niu_mod.niu_plan(mats)
+    first = [o.clone() for o in plan.refresh(99)]
+    assert all(torch.equal(a, b) for a, b in zip(first, plan.refresh(99)))
+    assert not all(torch.equal(a, b) for a, b in zip(first, plan.refresh(100)))
+    # the one-matrix entry point draws the same round as the plan
+    assert all(torch.equal(ops.niu_refresh(q, e, 99), a) for (q, e), a in zip(mats, first))

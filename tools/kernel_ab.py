@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time one tree's int8_gemm and decode kernels on a CUDA card, so two
+"""Time one tree's PU, NIU and decode kernels on a CUDA card, so two
 trees can be compared in one run on one card.
 
     python3 tools/kernel_ab.py --src path/to/checkout/src
@@ -7,13 +7,27 @@ trees can be compared in one run on one card.
 Imports ``repro_torch`` from ``--src``, builds its kernels, and prints one
 JSON line:
 
-- ``int8_gemm_ms``: the GEMM kernel's time summed over the 53 calls of one
-  seeded full-width ResNet-50 forward (224x224x3), each call re-issued
-  with the arguments the forward gave ``int8_gemm_pn`` and timed alone
-  with ``chip_smoke.Timer``;
-- ``forward_busy_ms``, ``forward_gemm_ms``, ``forward_copy_ms``: device
-  busy time of one profiled forward, and of it the GEMM kernel and the
-  copy kernels;
+- for the convolutions of one seeded full-width ResNet-50 forward
+  (224x224x3), each re-issued through ``ops.conv2d_int8`` with the
+  arguments the forward gave it, in two groups, ``conv3x3`` (its 16 3x3
+  convolutions) and ``conv_other`` (the other 37): ``*_ms``, each call
+  timed alone with ``chip_smoke.Timer`` and summed; ``*_graph_ms``, the
+  group's calls back to back from a CUDA graph (``chip_smoke.graph_ms``,
+  over ``chip_smoke.GRAPH_COPIES`` copies of the maps and weights), summed
+  over the group; ``*_busy_ms`` and ``*_kernel_ms``, device busy time of
+  the group's calls run eagerly back to back under the profiler, and of it
+  each kernel's time by name (in situ);
+- ``forward_busy_ms``, ``forward_gemm_ms``, ``forward_copy_ms``,
+  ``forward_im2col_ms`` and their launches: device busy time of one
+  profiled forward, and of it the GEMM kernel, the copy kernels and the
+  im2col kernels;
+- for one NIU round over the forward's 54 weight matrices (one
+  ``niu_plan(...).refresh`` where the tree has it, else one
+  ``niu_refresh`` per matrix): ``niu_round_ms`` (``Timer``),
+  ``niu_round_graph_ms``, ``niu_round_host_ms`` (host clock to
+  ``synchronize``, median of 10), ``niu_round_busy_ms`` and
+  ``niu_kernel_ms`` (device busy and the NIU kernel's time in one profiled
+  round) and ``niu_round_launches`` (device kernels in that round);
 - ``fused_mlp_ms`` and ``matmuls_ms``: one ``fused_mlp`` call at olmo-1b
   widths (B=8, d 2048, d_ff 8192, swiglu), and the three plain matmuls
   that compute it, each timed the same way;
@@ -39,51 +53,122 @@ from __future__ import annotations
 import argparse
 import importlib
 import json
+import statistics
 import sys
+import time
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import chip_smoke  # noqa: E402
 
 
-def resnet50_gemm_calls(torch, kgemm, resnet):
-    """Weights, image and the (args, kwargs) of each ``int8_gemm_pn`` call
-    of one forward of ``chip_smoke.py``'s ResNet-50."""
+def resnet50_conv_calls(torch, ops, resnet):
+    """Weights, image and the keyword arguments of each ``ops.conv2d_int8``
+    call of one forward of ``chip_smoke.py``'s ResNet-50."""
     params, img = chip_smoke.resnet_setup(torch)
-    calls, inner = [], kgemm.int8_gemm_pn
+    calls, inner = [], ops.conv2d_int8
 
-    def record(*a, **kw):
-        calls.append((a, kw))
-        return inner(*a, **kw)
+    def record(x, w4d, bias=None, **kw):
+        calls.append(dict(img=x, w4d=w4d, bias=bias, **kw))
+        return inner(x, w4d, bias, **kw)
 
-    kgemm.int8_gemm_pn = record
+    ops.conv2d_int8 = record
     try:
         resnet.forward_int8(chip_smoke.RESNET, params, img)
     finally:
-        kgemm.int8_gemm_pn = inner
+        ops.conv2d_int8 = inner
     torch.cuda.synchronize()
     assert len(calls) == chip_smoke.N_GEMM, len(calls)
     return params, img, calls
 
 
-def forward_profile(torch, resnet, params, img) -> dict:
-    """Device time of one ResNet-50 forward (after a warm-up one): busy,
-    and of it the GEMM kernel and the copy kernels."""
+def profiled(torch, fn, name: str):
+    """(device busy ms, {device op: ms}, device launches) of ``fn()`` run once
+    under the profiler, after one run outside it."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    resnet.forward_int8(chip_smoke.RESNET, params, img)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        with record_function("resnet_forward"):
-            resnet.forward_int8(chip_smoke.RESNET, params, img)
+        with record_function(name):
+            fn()
             torch.cuda.synchronize()
-    _, busy, by_name = chip_smoke.device_busy(torch, prof, "resnet_forward")
+    _, busy, by_name = chip_smoke.device_busy(torch, prof, name)
     cuda = torch.autograd.DeviceType.CUDA
-    return dict(forward_busy_ms=busy / 1e3,
-                forward_gemm_ms=sum(us for n, us in by_name.items() if "int8_gemm" in n) / 1e3,
-                forward_copy_ms=sum(us for n, us in by_name.items() if "copy" in n.lower()) / 1e3,
-                forward_copy_launches=sum(e.device_type == cuda and "copy" in e.name.lower()
-                                          for e in prof.events()))
+    launches = sum(e.device_type == cuda and e.name != name for e in prof.events())
+    return busy / 1e3, {n: us / 1e3 for n, us in by_name.items()}, launches
+
+
+def short(by_name: dict) -> dict:
+    """``{device op: ms}`` with the names cut short for the JSON line; the
+    names that then coincide are summed."""
+    out = {}
+    for n, ms in by_name.items():
+        out[n[:100]] = out.get(n[:100], 0.0) + ms
+    return out
+
+
+def conv_groups(torch, timer, ops, calls) -> dict:
+    """The forward's 3x3 convolutions and the others, each group timed
+    three ways (see the module docstring)."""
+    out = {}
+    for group, members in (("conv3x3", [c for c in calls if c["k"] == 3]),
+                           ("conv_other", [c for c in calls if c["k"] != 3])):
+        def run(c):
+            c = dict(c)
+            return ops.conv2d_int8(c.pop("img"), c.pop("w4d"), c.pop("bias"), **c)
+
+        out[f"{group}_calls"] = len(members)
+        out[f"{group}_ms"] = sum(timer(lambda c=c: run(c)) for c in members)
+        copies = [dict(c, img=c["img"].clone(), w4d=c["w4d"].clone())
+                  for _ in range(chip_smoke.GRAPH_COPIES) for c in members]
+        out[f"{group}_graph_ms"] = chip_smoke.graph_ms(
+            torch, [lambda c=c: run(c) for c in copies] * chip_smoke.GRAPH_PASSES) * len(members)
+        del copies
+        busy, by_name, launches = profiled(torch, lambda: [run(c) for c in members], group)
+        out[f"{group}_busy_ms"], out[f"{group}_kernel_ms"] = busy, short(by_name)
+        out[f"{group}_launches"] = launches
+    return out
+
+
+def forward_profile(torch, resnet, params, img) -> dict:
+    """Device time of one ResNet-50 forward (after a warm-up one): busy,
+    and of it the GEMM kernel, the copy kernels and im2col."""
+    busy, by_name, launches = profiled(
+        torch, lambda: resnet.forward_int8(chip_smoke.RESNET, params, img), "resnet_forward")
+    out = dict(forward_busy_ms=busy, forward_launches=launches)
+    for key, part in (("gemm", "int8_gemm"), ("copy", "copy"), ("im2col", "im2col")):
+        out[f"forward_{key}_ms"] = sum(ms for n, ms in by_name.items() if part in n.lower())
+    return out
+
+
+def niu_round(torch, timer, kniu, params) -> dict:
+    """One NIU round over every weight matrix, as the tree draws one."""
+    mats = chip_smoke.niu_matrices(params)
+    if hasattr(kniu, "niu_plan"):
+        def rounds(ms):
+            plan = kniu.niu_plan(ms)
+            return lambda seed: plan.refresh(seed)
+    else:
+        def rounds(ms):
+            return lambda seed: [kniu.niu_refresh(q, e, seed) for q, e in ms]
+    draw = rounds(mats)
+    out = dict(niu_round_ms=timer(lambda: draw(1)))
+    copies = [rounds([(q.clone(), e) for q, e in mats]) for _ in range(chip_smoke.GRAPH_COPIES)]
+    out["niu_round_graph_ms"] = chip_smoke.graph_ms(
+        torch, [lambda d=d: d(1) for d in copies] * chip_smoke.GRAPH_PASSES)
+    del copies
+    host = []
+    for seed in range(10):
+        t0 = time.perf_counter()
+        draw(seed)
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+    out["niu_round_host_ms"] = statistics.median(host)
+    busy, by_name, launches = profiled(torch, lambda: draw(8), "niu_round")
+    out.update(niu_round_busy_ms=busy, niu_round_launches=launches,
+               niu_kernel_ms=sum(ms for n, ms in by_name.items() if "niu" in n))
+    return out
 
 
 def qkv_and_attention(torch, timer, decode, ref, rnd, x) -> dict:
@@ -145,19 +230,19 @@ def main() -> int:
         print("kernel_ab: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, args.src)
-    from repro_torch.kernels import build, decode, ref
+    from repro_torch.kernels import build, decode, ops, ref
     from repro_torch.models import resnet
 
     build.build_all()
-    kgemm = importlib.import_module("repro_torch.kernels.int8_gemm")
+    kniu = importlib.import_module("repro_torch.kernels.niu")
     timer = chip_smoke.Timer(torch, chip_smoke.TIMED_CALLS)
     out = {"label": args.label, "src": args.src, "card": torch.cuda.get_device_name(0)}
 
-    # --- int8_gemm over one ResNet-50 forward ---------------------------------
-    params, img, calls = resnet50_gemm_calls(torch, kgemm, resnet)
-    gemm = kgemm.int8_gemm_pn
-    out["int8_gemm_ms"] = sum(timer(lambda a=a, kw=kw: gemm(*a, **kw)) for a, kw in calls)
+    # --- the convolutions of one ResNet-50 forward, and one NIU round ----------
+    params, img, calls = resnet50_conv_calls(torch, ops, resnet)
+    out.update(conv_groups(torch, timer, ops, calls))
     out.update(forward_profile(torch, resnet, params, img))
+    out.update(niu_round(torch, timer, kniu, params))
     del params, calls
 
     # --- fused_mlp at olmo-1b widths --------------------------------------------
