@@ -14,7 +14,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    each decode kernel called twice must give equal bits; then CUDA-event
    times of the kernel, the plain version and one PyTorch library call
    computing the same function, with the L2 flushed before each timed
-   call (``Timer``), and of each launch alone with its grid and TB/s (the
+   call (``Timer``), the kernel also with ``graph_ms`` (over
+   ``GRAPH_COPIES`` copies of its weights), and of each launch alone with
+   its grid and TB/s (the
    QKV GEMV, the split attention, the MLP's two GEMVs, the attention's
    output projection).
 2a. PU kernel phase, on a seeded full-width ResNet-50 (224x224x3 int8
@@ -47,14 +49,37 @@ Phases, in order; any failure raises and the script exits non-zero:
    weights are not re-laid out); the NIU path: one ``niu_plan`` over every
    weight matrix and one round, its launches counted (1 each), the host
    clock of a round (median of ``ROUNDS``) and a profiled round.
+2c. ``[graph] resnet``: the same forward captured as one CUDA graph
+   (``resnet.capture_forward_int8``): launches zeroed just before one
+   call and read just after (53 GEMMs, 1 im2col, added per replay); its
+   trunk equal bit for bit to the eager forward's on the card and to the
+   CPU's; its logits equal to the eager forward's; ms per image eager and
+   captured (median of ``FORWARDS``); the split-K counters and sums left
+   at zero by the replays; the idle share of one captured forward.
+2d. ``[aimc]`` ResNet: a ``core.aimc.NoiseInjectionUnit`` over the
+   ResNet-50's weights (one NIU launch a round through its plan) and the
+   forward captured once on its output tensors; ``AIMC_ROUNDS`` rounds of
+   refresh + replay: the output buffer at the same address every round,
+   the first round's logits equal to an eager forward on the refreshed
+   weights, top-1 flips, logit SNR and ms a round (refresh, forward).
 3. Model step: full-width olmo-1b prefill + one decode step with and
    without the kernels; logits finite and within ``LOGIT_ATOL``.
-4. Serve phase: ``repro_torch.launch.serve``'s engine at full width,
-   ``--requests 16 --prompt-len 512 --max-new 64 --max-batch 8``, with
-   and without ``--decode-kernels``, timed with nothing hooked in.
-   Launch counts are zeroed just before the kernel run and must equal
-   16 x its decode rounds.
-5. Teacher-forced check: both paths serve the requests again, untimed,
+4. Serve phase (``[serve]``, ``[graph] serve``): ``repro_torch.launch.serve``'s
+   engine at full width, ``--requests 16 --prompt-len 512 --max-new 64
+   --max-batch 8``, with and without ``--decode-kernels``, each run eager
+   and with its decode blocks replayed as CUDA graphs (the default, the
+   main path), timed with nothing hooked in.  Launch counts are zeroed
+   just before each run and must equal 16 x its decode rounds; the
+   captured runs capture nothing after warmup (``retrace_guard``) and
+   leave every split-K counter at zero; the greedy streams of the eager
+   and captured runs are equal on each path.
+   A temperature run eager and captured: equal streams, so each replay
+   drew fresh numbers from the engine's generator, as the eager rounds do.
+   ``[aimc]`` serve: ``--aimc`` at full width (``AIMC_SERVE_ARGV``),
+   captured: no capture after warmup, the weights at the same addresses,
+   streams other than the clean run's, tokens/s and the refresh's ms.
+5. Teacher-forced check: both paths serve the requests again (eager,
+   untimed),
    keeping every round's logits; the kernel run is fed the composed
    run's tokens, so at every step of every request the two score the
    same prefix, and their logits must agree within ``LOGIT_ATOL``.
@@ -66,10 +91,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    into the kernel path's wiring (RoPE one position late; the current
    token left out of attention); each must move the logits past
    ``LOGIT_ATOL``, so the limit is shown to catch a faulty path.
-7. Profile: ``torch.profiler`` over the kernel path's first engine step;
-   device time per decode round by kernel (the QKV GEMV, ``qkv_gemv_kernel``,
-   apart from the MLP's and ``@ wo``'s ``gemv_kernel``), and the device's
-   idle share.
+7. Profile: ``torch.profiler`` over the kernel path's first engine step,
+   eager and captured; device time per decode round by kernel (the QKV
+   GEMV, ``qkv_gemv_kernel``, apart from the MLP's and ``@ wo``'s
+   ``gemv_kernel``), the device's idle share inside the 32-round block,
+   and (captured) the launches counted by ``stats()`` against the
+   kernels the profiler saw.
 8. Print the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
    line last.
 """
@@ -99,6 +126,12 @@ REQUESTS, MAX_NEW = 16, 64
 SERVE_ARGV = ["--arch", "olmo-1b", "--requests", str(REQUESTS), "--prompt-len", "512",
               "--max-new", str(MAX_NEW), "--max-batch", "8", "--seed", "0"]
 TIMED_CALLS = 30            # CUDA-event timings per kernel; the median is kept
+TEMP_ARGV = ["--temperature", "0.8", "--requests", "8", "--max-new", "32"]
+# serve --aimc: a few requests at full width, one decode round a block
+AIMC_SERVE_ARGV = ["--arch", "olmo-1b", "--requests", "4", "--prompt-len", "128",
+                   "--max-new", "16", "--max-batch", "4", "--seed", "0", "--decode-kernels"]
+AIMC_ROUNDS = 8             # ResNet-50 NIU rounds (refresh + captured forward)
+AIMC_REFRESHES = 5          # timed LM NIU refreshes; the median is kept
 SOURCES = {
     "fused_qkv": "src/repro_torch/kernels/csrc/decode.cu",
     "fused_decode_attention": "src/repro_torch/kernels/csrc/decode.cu",
@@ -289,12 +322,16 @@ def kernel_phase(torch, timer, rates):
 
     out_bytes = 2 * B * (HQ + 2 * HKV) * HD
     t_bound, by = bound(rates, nbytes(x, wq, wk, wv, pos) + out_bytes, 2 * B * D * (HQ + 2 * HKV) * HD)
+    copies = [(wq, wk, wv)] + [tuple(w.clone() for w in (wq, wk, wv)) for _ in range(GRAPH_COPIES - 1)]
     rows["fused_qkv"] = dict(
         max_abs_err=err,
         ms=timer(lambda: decode.fused_qkv(x, wq, wk, wv, None, None, None, pos, **kw)),
+        graph_ms=graph_ms(torch, [lambda c=c: decode.fused_qkv(x, *c, None, None, None, pos, **kw)
+                                  for c in copies] * GRAPH_PASSES),
         plain_ms=timer(lambda: ref.fused_qkv_ref(x, wq, wk, wv, None, None, None, pos, **kw)),
         library_ms=timer(qkv_library), bound_ms=t_bound, bound_by=by,
     )
+    del copies
 
     # --- fused_decode_attention ----------------------------------------------
     q = rnd(B, HQ, HD)
@@ -347,12 +384,16 @@ def kernel_phase(torch, timer, rates):
         ctx = F.scaled_dot_product_attention(q[:, :, None], kt, vt, attn_mask=sdpa_mask)
         return ctx.reshape(B, HQ * HD) @ wo + bo
 
+    copies = [(k, v, wo)] + [tuple(t.clone() for t in (k, v, wo)) for _ in range(GRAPH_COPIES - 1)]
     rows["fused_decode_attention"] = dict(
         max_abs_err=err,
         ms=timer(lambda: decode.fused_decode_attention(q, k, v, wo, bo, **tkw)),
+        graph_ms=graph_ms(torch, [lambda c=c: decode.fused_decode_attention(q, *c, bo, **tkw)
+                                  for c in copies] * GRAPH_PASSES),
         plain_ms=timer(lambda: ref.decode_attention_ref(q, k, v, wo, bo, **tkw)),
         library_ms=timer(attn_library), bound_ms=t_bound, bound_by=by,
     )
+    del copies
 
     # --- fused_mlp -------------------------------------------------------------
     wu, wg, wd = rnd(D, FF, scale=0.02), rnd(D, FF, scale=0.02), rnd(FF, D, scale=0.02)
@@ -384,16 +425,20 @@ def kernel_phase(torch, timer, rates):
               f"grid {plan.tiles} column tiles x {plan.split} splits of {plan.kt_per} k-tiles",
               flush=True)
     t_bound, by = bound(rates, nbytes(x, wu, wg, wd) + 2 * B * D, 2 * B * D * FF * 3)
+    copies = [(wu, wg, wd)] + [tuple(w.clone() for w in (wu, wg, wd)) for _ in range(GRAPH_COPIES - 1)]
     rows["fused_mlp"] = dict(
         max_abs_err=err,
         ms=timer(lambda: decode.fused_mlp(x, wu, wg, None, wd, None, act="swiglu")),
+        graph_ms=graph_ms(torch, [lambda c=c: decode.fused_mlp(x, c[0], c[1], None, c[2], None,
+                                                               act="swiglu")
+                                  for c in copies] * GRAPH_PASSES),
         plain_ms=timer(lambda: ref.fused_mlp_ref(x, wu, wg, None, wd, None, act="swiglu")),
         library_ms=timer(lambda: (F.silu(x @ wg) * (x @ wu)) @ wd),
         bound_ms=t_bound, bound_by=by,
     )
     for name, r in rows.items():
         print(f"[kernel] {name}: max_abs_err={r['max_abs_err']} kernel_ms={r['ms']} "
-              f"plain_ms={r['plain_ms']} library_ms={r['library_ms']} "
+              f"graph_ms={r['graph_ms']} plain_ms={r['plain_ms']} library_ms={r['library_ms']} "
               f"bound_ms={r['bound_ms']} ({r['bound_by']})", flush=True)
     return rows
 
@@ -760,7 +805,8 @@ def resnet_phase(torch, rates, params, img):
     assert logits.shape == (1000,) and logits.dtype == torch.float32 and torch.isfinite(logits).all().item()
 
     cpu = {name: {k: v.to("cpu") for k, v in layer.items()} for name, layer in params.items()}
-    trunk = resnet._trunk_int8(RESNET, params, img).cpu()
+    trunk_card = resnet._trunk_int8(RESNET, params, img)
+    trunk = trunk_card.cpu()
     trunk_cpu = resnet._trunk_int8(RESNET, cpu, img.cpu())
     assert trunk.dtype == torch.int8 and torch.equal(trunk, trunk_cpu), "trunk differs from the CPU's"
     want = resnet.forward_int8(RESNET, cpu, img.cpu())
@@ -838,7 +884,8 @@ def resnet_phase(torch, rates, params, img):
           f"plan's max |q|: {counts['niu_plan']} launch, once); under the profiler {window / 1e3} "
           f"ms, device busy {busy / 1e3} ms, of it niu_refresh_kernel {kernel_us / 1e3} ms; device "
           f"ops {sorted(by_name)}", flush=True)
-    return dict(launches={**launches, "niu_refresh": niu_launches}, ms=ms)
+    return dict(launches={**launches, "niu_refresh": niu_launches}, ms=ms, trunk=trunk_card,
+                trunk_cpu=trunk_cpu, logits=logits)
 
 
 def model_step_phase(torch):
@@ -880,57 +927,112 @@ def bf16_ulp(x: float) -> float:
     return 2.0 ** (math.floor(math.log2(abs(x))) - 7) if x else 2.0 ** -133
 
 
-def serve_engine(serve, kernels: bool):
-    """The launcher's engine for the serve phase's requests, warmed up,
-    with the requests queued."""
-    args = serve.build_parser().parse_args(SERVE_ARGV + (["--decode-kernels"] if kernels else []))
-    engine = serve.make_engine(args)
+def serve_engine(serve, kernels: bool, eager: bool = False, extra=()):
+    """The launcher's engine for the serve phase's requests (``extra``
+    arguments after them), warmed up, with the requests queued; its
+    decode blocks replay CUDA graphs unless ``eager``."""
+    argv = SERVE_ARGV + (["--decode-kernels"] if kernels else []) + list(extra)
+    args = serve.build_parser().parse_args(argv)
+    engine = serve.make_engine(args, eager=eager)
     engine.warmup()
     serve.submit_requests(engine, args)
     return engine
 
 
-def serve_phase(torch, rates):
-    """Timed runs of both paths, nothing hooked in: stats, launch counts
-    of the kernel path's run, and the greedy streams."""
+def served(torch, engine):
+    """Serve the queued requests with nothing hooked in, launch counts
+    zeroed just before and read just after; no capture may happen."""
+    from repro_torch.analysis.sanitize import retrace_guard
     from repro_torch.kernels import decode
+
+    captures = engine.tracing.total()
+    decode.reset_launches()                 # count this run only
+    with retrace_guard(engine.tracing):
+        engine.run_until_drained()
+    torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in decode.KERNELS}
+    return engine.stats(), launches, captures
+
+
+def scratch_left_zero(torch, graphs, what: str) -> int:
+    """The split-K kernels' tile counters (and the GEMM's int32 sums) are
+    zero after ``what``: every scratch in ``common`` and every one the
+    ``graphs`` keep.  A kernel that left one non-zero would corrupt the
+    next call, eager or replayed.  Returns how many were checked."""
+    from repro_torch.kernels import common
+
+    torch.cuda.synchronize()
+    pairs = [((k[0],), p) for k, p in common._SCRATCH.items()]
+    pairs += [(("pinned",), p) for g in graphs for p in g._keep]
+    for (kernel,), (ws, cnt) in pairs:
+        assert not cnt.any().item(), f"{what}: {kernel} tile counters left non-zero"
+        assert ws.dtype != torch.int32 or not ws.any().item(), f"{what}: GEMM sums left non-zero"
+    print(f"[graph] after {what}: the split-K counters and the GEMM's sums of {len(pairs)} "
+          f"scratch pairs are zero", flush=True)
+    return len(pairs)
+
+
+def serve_phase(torch, rates):
+    """Timed runs of both paths, each eager and captured (the main path),
+    nothing hooked in: stats, launch counts of each run, the greedy
+    streams, equal between eager and captured; then a temperature run
+    eager and captured."""
     from repro_torch.launch import serve
 
     runs = {}
     for kernels in (False, True):
-        engine = serve_engine(serve, kernels)
-        decode.reset_launches()                 # count the main path's run only
-        engine.run_until_drained()
-        torch.cuda.synchronize()
-        launches = {
-            "fused_qkv": decode.fused_qkv.launches,
-            "fused_decode_attention": decode.fused_decode_attention.launches,
-            "fused_mlp": decode.fused_mlp.launches,
-        }
-        st = engine.stats()
-        streams = {r.uid: r.out_tokens for r in engine.completed}
-        label = "kernels" if kernels else "composed"
-        print(f"[serve] {label}: tokens_per_s={st['tokens_per_s']} mean_ttft_s={st['mean_ttft_s']} "
-              f"mean_decode_round_s={st['mean_decode_round_s']} decode_rounds={st['decode_rounds']} "
-              f"launches={launches}", flush=True)
-        assert st["completed"] == REQUESTS and len(streams) == REQUESTS, st
-        assert all(len(s) == MAX_NEW and all(0 <= t < VOCAB for t in s) for s in streams.values())
-        want = LAYERS * engine.decode_rounds if kernels else 0
-        assert all(n == want for n in launches.values()), (launches, want)
-        assert not kernels or want > 0
-        if kernels:
-            # least time a round could take: every weight and the whole
-            # KV cache read once at the card's memory rate
-            wb, kvb = tree_bytes(engine.params), tree_bytes(engine._cache)
-            bound_s = (wb + kvb) / rates["bytes"]
-            print(f"[serve] round bound {bound_s * 1e3} ms (weights {wb} B + KV cache {kvb} B "
-                  f"at {rates['bytes']} B/s); kernel-path round / bound = "
-                  f"{st['mean_decode_round_s'] / bound_s}", flush=True)
-        runs[label] = dict(streams=streams, launches=launches, round_s=st["mean_decode_round_s"])
-        del engine
-        torch.cuda.empty_cache()
+        for eager in (True, False):
+            engine = serve_engine(serve, kernels, eager)
+            st, launches, captures = served(torch, engine)
+            streams = {r.uid: r.out_tokens for r in engine.completed}
+            label = ("kernels" if kernels else "composed") + ("_eager" if eager else "")
+            tag = "[serve]" if eager else "[graph] serve"
+            print(f"{tag} {label}: tokens_per_s={st['tokens_per_s']} mean_ttft_s={st['mean_ttft_s']} "
+                  f"mean_decode_round_s={st['mean_decode_round_s']} decode_rounds={st['decode_rounds']} "
+                  f"launches={launches} graphs captured at warmup={captures} after=0", flush=True)
+            assert st["completed"] == REQUESTS and len(streams) == REQUESTS, st
+            assert all(len(s) == MAX_NEW and all(0 <= t < VOCAB for t in s) for s in streams.values())
+            assert st["cuda_graphs"] == float(not eager) and captures == (0 if eager else 6), (st, captures)
+            want = LAYERS * engine.decode_rounds if kernels else 0
+            assert all(n == want for n in launches.values()), (launches, want)
+            assert not kernels or want > 0
+            assert (st["kernel_launches_qkv"], st["kernel_launches_attn"],
+                    st["kernel_launches_mlp"]) == tuple(float(n) for n in launches.values())
+            if kernels and not eager:
+                # least time a round could take: every weight and the whole
+                # KV cache read once at the card's memory rate
+                wb, kvb = tree_bytes(engine.params), tree_bytes(engine._cache)
+                bound_s = (wb + kvb) / rates["bytes"]
+                print(f"[serve] round bound {bound_s * 1e3} ms (weights {wb} B + KV cache {kvb} B "
+                      f"at {rates['bytes']} B/s); kernel-path round / bound = "
+                      f"{st['mean_decode_round_s'] / bound_s}", flush=True)
+            if not eager:
+                scratch_left_zero(torch, engine._graphs.values(), f"the {label} run's replays")
+            runs[label] = dict(streams=streams, launches=launches,
+                               round_s=st["mean_decode_round_s"], tokens_per_s=st["tokens_per_s"])
+            del engine
+            torch.cuda.empty_cache()
+        path = "kernels" if kernels else "composed"
+        eq = runs[path]["streams"] == runs[path + "_eager"]["streams"]
+        print(f"[graph] serve {path}: greedy streams of the captured run "
+              f"{'equal' if eq else 'DIFFER from'} the eager run's ({REQUESTS} requests); round "
+              f"{runs[path + '_eager']['round_s'] * 1e3} -> {runs[path]['round_s'] * 1e3} ms, "
+              f"{runs[path + '_eager']['tokens_per_s']} -> {runs[path]['tokens_per_s']} tokens/s",
+              flush=True)
+        assert eq, f"{path}: the captured decode blocks changed the greedy streams"
     same = sum(runs["kernels"]["streams"][u] == s for u, s in runs["composed"]["streams"].items())
     print(f"[serve] greedy streams: {same}/{REQUESTS} identical between the paths", flush=True)
+    temp = {}
+    for eager in (True, False):
+        engine = serve_engine(serve, True, eager, TEMP_ARGV)
+        served(torch, engine)
+        temp[eager] = ({r.uid: r.out_tokens for r in engine.completed}, engine._gen.get_offset())
+        del engine
+    print(f"[graph] serve temperature 0.8 (kernels): the captured run's streams "
+          f"{'equal' if temp[True][0] == temp[False][0] else 'DIFFER from'} the eager run's; "
+          f"the sampling generator's offset after the run: eager {temp[True][1]}, captured "
+          f"{temp[False][1]}", flush=True)
+    assert temp[True] == temp[False], "the replayed rounds did not draw as the eager rounds do"
     return runs
 
 
@@ -942,7 +1044,7 @@ def logged_run(torch, kernels: bool, feed=None):
     forcing); the run's own samples still land in its streams."""
     from repro_torch.launch import serve
 
-    engine = serve_engine(serve, kernels)
+    engine = serve_engine(serve, kernels, eager=True)       # the hook runs every round
     inner, state, lanes = engine.api.decode_step, engine._state, engine._lanes
     table = torch.zeros_like(state["out_buf"])
     loaded = [None] * len(engine._slots)
@@ -1049,6 +1151,13 @@ def fault_phase(torch, want_streams, want_rounds):
         torch.cuda.empty_cache()
 
 
+def kernel_name(name: str) -> str:
+    """A device op's function name: ``void (anonymous namespace)::
+    attn_kernel<1, 128>(...)`` -> ``attn_kernel``."""
+    name = name.replace("(anonymous namespace)::", "").removeprefix("void ")
+    return name.split("<", 1)[0].split("(", 1)[0].rsplit("::", 1)[-1]
+
+
 def device_busy(torch, prof, window_name: str):
     """(window us, device-busy us, {device op: us}) inside the host span
     ``window_name`` of a torch.profiler run; the span's own annotation is
@@ -1070,41 +1179,209 @@ def device_busy(torch, prof, window_name: str):
     return w1 - w0, busy, by_name
 
 
-def decode_block_profile(torch):
+def decode_block_profile(torch, eager: bool):
     """torch.profiler over the kernel path's first engine step (the first
-    wave's prefill and a 32-round decode block): (rounds, window us,
-    device-busy us, {device op: us}) of the block."""
+    wave's prefill and a 32-round decode block, replayed from its CUDA
+    graph unless ``eager``): (rounds, window us, device-busy us, {device
+    op: us}, {device op: launches}, the wrappers' launch counts) of the
+    block."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
+    from repro_torch.kernels import decode
     from repro_torch.launch import serve
 
-    engine = serve_engine(serve, kernels=True)
-    inner = engine._decode_block_impl
+    engine = serve_engine(serve, kernels=True, eager=eager)
+    inner = engine._decode_block
 
-    def decode_block(params, cache, state, n_rounds):
+    def block(n_rounds):
+        decode.reset_launches()             # count the block's launches only
         with record_function("decode_block"):
-            out = inner(params, cache, state, n_rounds)
+            inner(n_rounds)
             torch.cuda.synchronize()
-        return out
 
-    engine._decode_block_impl = decode_block
+    engine._decode_block = block
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         engine.step()
+    launches = {k.__name__: k.launches for k in decode.KERNELS}
     rounds = engine.decode_rounds
+    window, busy, by_name = device_busy(torch, prof, "decode_block")
     del engine
-    return (rounds, *device_busy(torch, prof, "decode_block"))
+    cuda = torch.autograd.DeviceType.CUDA
+    (w0, w1), = [(e.time_range.start, e.time_range.end) for e in prof.events()
+                 if e.name == "decode_block" and e.device_type != cuda]
+    calls = {}
+    for e in prof.events():
+        if e.device_type == cuda and w0 <= e.time_range.start < w1:
+            calls[e.name] = calls.get(e.name, 0) + 1
+    return rounds, window, busy, by_name, calls, launches
 
 
-def profile_phase(torch, round_s: float):
-    """Device time per decode round by kernel, and the device's idle share
-    inside a traced decode block (``decode_block_profile``)."""
-    rounds, window, busy, by_name = decode_block_profile(torch)
-    window_ms, busy_ms = window / 1e3 / rounds, busy / 1e3 / rounds
-    print(f"[profile] {rounds} rounds traced: block {window_ms} ms a round, device busy "
-          f"{busy_ms} ms a round, idle share {1 - busy_ms / window_ms} under the profiler; "
-          f"busy / unprofiled round ({round_s * 1e3} ms) = {busy_ms / (round_s * 1e3)}", flush=True)
-    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
-        print(f"[profile]   {us / 1e3 / rounds} ms a round  {name[:110]}", flush=True)
+def profile_phase(torch, runs):
+    """Device time per decode round by kernel, the device's idle share
+    inside a traced decode block (``decode_block_profile``), eager and
+    captured, and the captured block's launch counts against the
+    profiler's."""
+    out = {}
+    for eager in (True, False):
+        label = "eager" if eager else "captured"
+        round_s = runs["kernels_eager" if eager else "kernels"]["round_s"]
+        rounds, window, busy, by_name, calls, launches = decode_block_profile(torch, eager)
+        window_ms, busy_ms = window / 1e3 / rounds, busy / 1e3 / rounds
+        tag = "[profile]" if eager else "[graph] profile"
+        print(f"{tag} {label}: {rounds} rounds traced: block {window_ms} ms a round, device "
+              f"busy {busy_ms} ms a round, idle share {1 - busy_ms / window_ms} under the "
+              f"profiler; busy / unprofiled round ({round_s * 1e3} ms) = "
+              f"{busy_ms / (round_s * 1e3)}", flush=True)
+        for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
+            print(f"{tag}   {us / 1e3 / rounds} ms a round  {name[:110]}", flush=True)
+
+        def seen(kernel):
+            return sum(n for name, n in calls.items() if kernel_name(name) == kernel)
+
+        want = dict(qkv_gemv_kernel=launches["fused_qkv"],
+                    attn_kernel=launches["fused_decode_attention"],
+                    gemv_kernel=launches["fused_decode_attention"] + 2 * launches["fused_mlp"])
+        got = {k: seen(k) for k in want}
+        print(f"{tag} {label}: launches counted by the wrappers {launches} -> kernels expected "
+              f"{want}, seen by the profiler {got}; device ops in the block "
+              f"{sum(calls.values())}", flush=True)
+        assert launches["fused_qkv"] == LAYERS * rounds and got == want, (launches, want, got)
+        out[label] = dict(busy_ms=busy_ms, window_ms=window_ms)
+    return out
+
+
+def graph_resnet_phase(torch, params, img, eager):
+    """The ResNet-50 forward captured as one CUDA graph: launches of one
+    call, its trunk and logits against the eager forward (and the trunk
+    against the CPU's), ms per image, and the idle share of one call."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.kernels import common
+    from repro_torch.models import resnet
+
+    fwd = resnet.capture_forward_int8(RESNET, params, img.shape)
+    common.reset_launches()                     # count one captured call only
+    logits = fwd(img)
+    torch.cuda.synchronize()
+    launches = common.launch_counts()
+    print(f"[graph] resnet launches in one captured forward (added per replay): {launches}",
+          flush=True)
+    assert launches["int8_gemm"] == N_GEMM and launches["im2col"] == N_IM2COL_LAUNCHES, launches
+    trunk = fwd.trunk.cpu()
+    same_trunk = torch.equal(fwd.trunk, eager["trunk"]) and torch.equal(trunk, eager["trunk_cpu"])
+    same_logits = torch.equal(logits, eager["logits"])
+    print(f"[graph] resnet trunk {tuple(trunk.shape)} {'equal' if same_trunk else 'NOT equal'} "
+          f"bit for bit to the eager forward's on the card and to the CPU's; logits "
+          f"{'equal' if same_logits else 'NOT equal'} to the eager forward's on the card", flush=True)
+    assert same_trunk and same_logits
+    times = []
+    for _ in range(FORWARDS):
+        t0 = time.perf_counter()
+        fwd(img)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    ms = statistics.median(times) * 1e3
+    print(f"[graph] resnet forward_int8 {IMAGE}x{IMAGE}, batch 1: eager {eager['ms']} ms -> "
+          f"captured {ms} ms per image (median of {FORWARDS}; min {min(times) * 1e3}, max "
+          f"{max(times) * 1e3}) = {1e3 / eager['ms']} -> {1e3 / ms} images/s", flush=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function("resnet_forward"):
+            fwd(img)
+            torch.cuda.synchronize()
+    scratch_left_zero(torch, [fwd.graph], f"{FORWARDS + 2} replays of the ResNet-50 forward")
+    window, busy, by_name = device_busy(torch, prof, "resnet_forward")
+    print(f"[graph] profile one captured ResNet-50 forward: {window / 1e3} ms under the profiler, "
+          f"device busy {busy / 1e3} ms, idle share {1 - busy / window}; busy / unprofiled "
+          f"forward ({ms} ms) = {busy / 1e3 / ms}", flush=True)
+    return dict(launches=launches, ms=ms)
+
+
+def aimc_resnet_phase(torch, params, img):
+    """AIMC rounds on ResNet-50: the NIU (one launch a round over every
+    weight matrix) rewrites the weights a captured forward reads."""
+    from repro_torch.core.aimc import AIMCNoiseModel, NoiseInjectionUnit, snr_db
+    from repro_torch.kernels import common
+    from repro_torch.models import resnet
+
+    clean = resnet.forward_int8(RESNET, params, img)
+    niu = NoiseInjectionUnit(params, AIMCNoiseModel(), target_filter=lambda p, leaf: p[-1] == "w")
+    fwd = resnet.capture_forward_int8(RESNET, niu.params, img.shape)
+    buf = niu.plan.outs[0].data_ptr()
+    niu.refresh()
+    assert torch.equal(fwd(img), resnet.forward_int8(RESNET, niu.params, img)), \
+        "the captured forward did not read the refreshed weights"
+    torch.cuda.synchronize()
+    common.reset_launches()                     # count the rounds only
+    refresh_ms, forward_ms, flips, snrs, outs = [], [], 0, [], []
+    for r in range(AIMC_ROUNDS):
+        t0 = time.perf_counter()
+        niu.refresh()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = fwd(img)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        refresh_ms.append((t1 - t0) * 1e3)
+        forward_ms.append((t2 - t1) * 1e3)
+        assert niu.plan.outs[0].data_ptr() == buf, "the NIU's output buffer moved"
+        flips += int(out.argmax().item() != clean.argmax().item())
+        snrs.append(snr_db(clean, out).item())
+        outs.append(out)
+    assert all(not torch.equal(a, b) for a, b in zip(outs, outs[1:])), "a round repeated its noise"
+    launches = common.launch_counts()
+    n = sum(o.numel() for o in niu.plan.outs)
+    print(f"[aimc] ResNet-50 {IMAGE}x{IMAGE}: {AIMC_ROUNDS} rounds of NIU refresh ({n} int8 weights, "
+          f"{len(niu.plan.outs)} matrices, one launch) + captured forward: top-1 flips "
+          f"{flips}/{AIMC_ROUNDS}, logit SNR {statistics.mean(snrs)} dB (min {min(snrs)}); ms a "
+          f"round: refresh {statistics.median(refresh_ms)} + forward {statistics.median(forward_ms)} "
+          f"(medians); the output buffer at the same address every round; launches in the "
+          f"rounds {launches}", flush=True)
+    assert launches["niu_refresh"] == AIMC_ROUNDS and launches["int8_gemm"] == AIMC_ROUNDS * N_GEMM, \
+        launches
+    return dict(launches=launches)
+
+
+def aimc_serve_phase(torch):
+    """serve --aimc at full width, captured: no capture after warmup, the
+    NIU writing the tensors the graphs read, streams other than the clean
+    run's, tokens/s and the refresh's ms a round."""
+    from repro_torch.launch import serve
+
+    def run(aimc: bool):
+        args = serve.build_parser().parse_args(AIMC_SERVE_ARGV + (["--aimc"] if aimc else []))
+        engine = serve.make_engine(args)
+        engine.warmup()
+        serve.submit_requests(engine, args)
+        return engine, args
+
+    engine, args = run(False)
+    served(torch, engine)
+    clean = {r.uid: r.out_tokens for r in engine.completed}
+    del engine
+    engine, args = run(True)
+    wq = engine.params["layers"]["attn"]["wq"]
+    ptr = wq.data_ptr()
+    st, launches, captures = served(torch, engine)
+    noisy = {r.uid: r.out_tokens for r in engine.completed}
+    assert engine.params["layers"]["attn"]["wq"].data_ptr() == ptr and wq.data_ptr() == ptr
+    assert st["aimc_refreshes"] == st["decode_rounds"] and st["decode_rounds"] > 0, st
+    assert not torch.equal(wq, engine.niu.pristine["layers"]["attn"]["wq"])
+    times = []
+    for _ in range(AIMC_REFRESHES):
+        t0 = time.perf_counter()
+        engine.niu.refresh()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    n = sum(w.numel() for w, _ in engine.niu._floats)
+    differ = sum(noisy[u] != s for u, s in clean.items())
+    print(f"[aimc] serve --aimc olmo-1b ({' '.join(AIMC_SERVE_ARGV)}), captured: tokens_per_s="
+          f"{st['tokens_per_s']} mean_decode_round_s={st['mean_decode_round_s']} "
+          f"decode_rounds={st['decode_rounds']} refreshes={st['aimc_refreshes']} graphs captured "
+          f"at warmup {captures}, after 0; refresh of {n} bf16 weights {statistics.median(times)} "
+          f"ms (median of {AIMC_REFRESHES}); streams differ from the clean run's in {differ} of "
+          f"{len(clean)} requests; launches {launches}", flush=True)
+    assert len(noisy) == len(clean) and differ > 0
+    del engine
 
 
 def main() -> int:
@@ -1134,18 +1411,24 @@ def main() -> int:
     params, img = resnet_setup(torch)
     rows.update(pu_kernel_phase(torch, timer, rates, params, img))
     resnet = resnet_phase(torch, rates, params, img)
-    del params, img, timer
+    graph = graph_resnet_phase(torch, params, img, resnet)
+    aimc = aimc_resnet_phase(torch, params, img)
+    del params, img, timer, resnet
     torch.cuda.empty_cache()
     model_step_phase(torch)
     torch.cuda.empty_cache()
     runs = serve_phase(torch, rates)
+    aimc_serve_phase(torch)
+    torch.cuda.empty_cache()
     want_streams, want_rounds = forced_phase(torch, runs)
     fault_phase(torch, want_streams, want_rounds)
     del want_rounds
     torch.cuda.empty_cache()
-    profile_phase(torch, runs["kernels"]["round_s"])
-    launches = {**runs["kernels"]["launches"], **{k: resnet["launches"][k] for k in
-                                                  ("int8_gemm", "im2col", "niu_refresh")}}
+    profile_phase(torch, runs)
+    # each kernel's launches on its main path: the captured serve run, the
+    # captured ResNet-50 forward, the AIMC rounds
+    launches = {**runs["kernels"]["launches"], "niu_refresh": aimc["launches"]["niu_refresh"],
+                **{k: graph["launches"][k] for k in ("int8_gemm", "im2col")}}
     kernels = [
         dict(name=n, route="cuda", source=SOURCES[n], replaces=REPLACES[n],
              launches=launches[n], kernel_ms=r["ms"], **r)

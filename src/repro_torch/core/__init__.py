@@ -1,6 +1,8 @@
 """The paper's core arithmetic, as far as the port has it: INT8
-power-of-two quantization (``core.quant``).  The planner half of the JAX
-``repro.core`` (scheduler, simulator, streaming) is not ported yet."""
+power-of-two quantization (``core.quant``) and AIMC noise emulation
+(``core.aimc``, imported from its module: it reaches the kernels).  The
+planner half of the JAX ``repro.core`` (scheduler, simulator, streaming)
+is not ported yet."""
 from repro_torch.core.quant import (
     INT8_MAX,
     INT8_MIN,

@@ -8,7 +8,8 @@ Steps, mirroring the paper's SS IV-V evaluation:
   1. Build the quantized (power-of-two scales) ResNet from a seed.
   2. Run one INT8 inference through the im2col + int8 GEMM kernels (on the
      CUDA card by default; ``--device cpu`` runs their plain versions) and
-     print its time and top-5 classes.
+     print its time and top-5 classes; on the card, also the forward
+     captured as one CUDA graph (median of 30 calls).
 
 The JAX example's steps 3-4 -- the two-phase weight-transfer schedule
 against the PU's URAM (Fig. 5(b,c)) and the simulated Table I row -- need
@@ -19,6 +20,7 @@ queue 1, step 10).
 from __future__ import annotations
 
 import argparse
+import statistics
 import time
 
 import numpy as np
@@ -58,6 +60,20 @@ def main(argv=None):
     where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "CPU (plain versions)"
     print(f"int8 forward ({args.image_size}x{args.image_size}): "
           f"{dt * 1e3:.1f} ms on {where}, top-5 classes {top5}")
+    if dev.type == "cuda":
+        fwd = resnet.capture_forward_int8(args.variant, params, img.shape)
+        times = []
+        for _ in range(30):
+            t0 = time.perf_counter()
+            graph_logits = fwd(img)
+            torch.cuda.synchronize(dev)
+            times.append(time.perf_counter() - t0)
+        same = torch.equal(graph_logits, logits)
+        print(f"captured int8 forward (one CUDA graph): {statistics.median(times) * 1e3:.3f} ms "
+              f"(median of 30), logits {'equal to' if same else 'DIFFERENT from'} the eager "
+              f"forward's")
+        if not same:
+            raise RuntimeError("the captured forward differs from the eager one")
     return top5
 
 

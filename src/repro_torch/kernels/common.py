@@ -9,7 +9,7 @@ caller asks for it.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple, Union
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -38,12 +38,25 @@ def use_kernel(t: torch.Tensor) -> bool:
     raise ValueError(f"unsupported device {t.device}")
 
 
+# Scalar arguments the kernels read through a pointer, one () int32
+# tensor per (value, device), made once.
+_SCALARS: Dict[Tuple[int, torch.device], torch.Tensor] = {}
+
+
 def device_int(v: Union[int, torch.Tensor], name: str, dev: torch.device) -> torch.Tensor:
     """A scalar integer argument as the () int32 tensor on ``dev`` that a
-    kernel reads through a pointer.  A Python int is filled on the device,
-    so no call syncs to the host; a tensor must already be there."""
+    kernel reads through a pointer.  A Python int gets a static tensor,
+    filled once (so no call syncs to the host, and a captured CUDA graph
+    holds no fill kernel); a tensor must already be there."""
     if not isinstance(v, torch.Tensor):
-        return torch.full((), int(v), dtype=torch.int32, device=dev)
+        key = (int(v), dev)
+        t = _SCALARS.get(key)
+        if t is None:
+            if dev.type == "cuda" and torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(f"{name}={v}: no static scalar yet while a CUDA graph is "
+                                   f"captured; run the call once before capturing it")
+            t = _SCALARS[key] = torch.full((), int(v), dtype=torch.int32, device=dev)
+        return t
     if v.device != dev or v.numel() != 1 or v.is_floating_point():
         raise ValueError(f"{name} must be one integer on {dev}, got {v.dtype} "
                          f"{tuple(v.shape)} on {v.device}")
@@ -64,6 +77,8 @@ def cuda_stream() -> int:
 # Split-K kernels' scratch, by (kernel, device, stream): a workspace for
 # the split partials and one counter per output tile.
 _SCRATCH: Dict[Tuple[str, torch.device, int], Tuple[torch.Tensor, torch.Tensor]] = {}
+# While a CUDA graph is captured: the scratch it reads, kept alive with it.
+_PINNED: List[list] = []
 
 
 def split_k_scratch(kernel: str, dev: torch.device, stream: int, numel: int,
@@ -73,13 +88,21 @@ def split_k_scratch(kernel: str, dev: torch.device, stream: int, numel: int,
     ``stream``: zeroed when allocated, grown when a call needs more, else
     reused.  The kernels leave the counters (and the GEMM its int32 sums)
     at zero, so no call pays for a memset; calls on one stream run in
-    order, so they can share them."""
+    order, so they can share them.  A graph being captured must find its
+    scratch made (:func:`capture_graph` runs the work once first) and
+    keeps it alive: growing it later makes new tensors for later calls."""
     ws, cnt = _SCRATCH.get((kernel, dev, stream), (None, None))
+    grow = ws is None or ws.numel() < numel or cnt.numel() < counters
+    if grow and _PINNED:
+        raise RuntimeError(f"{kernel}: its scratch would grow while a CUDA graph is captured; "
+                           f"run the call once on the capture stream first")
     if ws is None or ws.numel() < numel:
         ws = torch.zeros(max(numel, 1), dtype=dtype, device=dev)
     if cnt is None or cnt.numel() < counters:
         cnt = torch.zeros(max(counters, 1), dtype=torch.int32, device=dev)
     _SCRATCH[kernel, dev, stream] = ws, cnt
+    if _PINNED and all(w is not ws for w, _ in _PINNED[-1]):
+        _PINNED[-1].append((ws, cnt))
     return ws, cnt
 
 
@@ -106,3 +129,69 @@ def reset_launches():
 def launch_counts() -> dict:
     """Every registered wrapper's launch count, by the wrapper's name."""
     return {fn.__name__: fn.launches for fn in _COUNTED}
+
+
+def launch_snapshot() -> dict:
+    """Every registered wrapper's launch count, by the wrapper."""
+    return {fn: fn.launches for fn in _COUNTED}
+
+
+# ------------------------------------------------------------ CUDA graphs --
+
+_STREAMS: Dict[torch.device, "torch.cuda.Stream"] = {}
+
+
+def graph_stream(dev: torch.device) -> "torch.cuda.Stream":
+    """The side stream on which the port captures its CUDA graphs on
+    ``dev`` (one, so the split-K scratch a graph reads is that stream's)."""
+    if dev not in _STREAMS:
+        _STREAMS[dev] = torch.cuda.Stream(dev)
+    return _STREAMS[dev]
+
+
+class CapturedGraph:
+    """A captured CUDA graph, the kernel launches each replay makes, and
+    the scratch it reads (kept alive as long as the graph)."""
+
+    def __init__(self, graph, launches: dict, keep: Sequence = ()):
+        self.graph = graph
+        self.launches = {fn: n for fn, n in launches.items() if n}
+        self._keep = list(keep)
+
+    def replay(self):
+        """Replay the graph on the current stream; each wrapper's count
+        grows by the launches the graph holds."""
+        self.graph.replay()
+        for fn, n in self.launches.items():
+            fn.launches += n
+
+
+def capture_graph(fn: Callable, *, pool=None, generators: Sequence = ()):
+    """Run ``fn`` once on the capture stream, eagerly (it builds and
+    configures the kernels it reaches and makes their scratch and static
+    scalars; its launches count as launches), then capture it into one
+    CUDA graph on the same stream.  ``generators`` are registered with the
+    graph, so each replay advances them.  Returns ``(CapturedGraph,
+    fn's output from the capture)``: the capture launches nothing, so the
+    wrappers' counts are set back, and each replay adds what the capture
+    counted.  A capture that fails raises."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    side, main = graph_stream(dev), torch.cuda.current_stream(dev)
+    side.wait_stream(main)
+    with torch.cuda.stream(side):
+        fn()
+    main.wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    for gen in generators:
+        graph.register_generator_state(gen)
+    before = launch_snapshot()
+    _PINNED.append([])
+    try:
+        with torch.cuda.graph(graph, pool=pool, stream=side):
+            out = fn()
+    finally:
+        keep = _PINNED.pop()
+        after = launch_snapshot()
+        for f, n in before.items():
+            f.launches = n
+    return CapturedGraph(graph, {f: after[f] - before[f] for f in before}, keep), out

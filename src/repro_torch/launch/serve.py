@@ -1,13 +1,16 @@
 """Serving launcher of the port: batched requests against olmo-1b.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b \
-        [--smoke] [--decode-kernels] [--device cpu]
+        [--smoke] [--decode-kernels] [--aimc] [--device cpu]
 
 Runs on the CUDA card unless ``--device cpu`` is given; without a card
 and without that flag it fails.  Weights are made from ``--seed`` by the
 port's own init.  ``--decode-kernels`` puts the hand-written CUDA decode
 kernels on the per-token hot path; the default composed PyTorch path is
-the A/B reference.  Prints a JSON stats blob.
+the A/B reference.  On the card the decode blocks replay CUDA graphs
+captured at warmup.  ``--aimc`` serves through the SS VI noise-injection
+unit: fresh AIMC noise in the weights every round.  Prints a JSON stats
+blob.
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ import json
 import numpy as np
 
 from repro_torch.configs import ARCH_IDS, get_config, smoke_variant
+from repro_torch.core.aimc import AIMCNoiseModel
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models import api as model_api
 from repro_torch.runtime.serving import ServeConfig, ServingEngine
@@ -45,6 +49,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="hand-written CUDA decode kernels (QKV+RoPE, GQA "
                          "attention + out-projection, gated MLP) on the "
                          "per-token hot path")
+    ap.add_argument("--aimc", action="store_true",
+                    help="AIMC noise emulation (SS VI NIU)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; cpu runs the plain "
@@ -52,8 +58,10 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def make_engine(args) -> ServingEngine:
-    """Config, seeded weights and engine for parsed launcher arguments."""
+def make_engine(args, eager: bool = False) -> ServingEngine:
+    """Config, seeded weights and engine for parsed launcher arguments
+    (``eager``: the engine's decode blocks run as a Python loop on the
+    card, not as CUDA graphs)."""
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.smoke:
@@ -73,8 +81,9 @@ def make_engine(args) -> ServingEngine:
         ),
         max_decode_block=args.decode_block,
         decode_kernels=args.decode_kernels,
+        aimc=AIMCNoiseModel() if args.aimc else None,
     )
-    return ServingEngine(cfg, params, serve_cfg, device)
+    return ServingEngine(cfg, params, serve_cfg, device, eager=eager)
 
 
 def submit_requests(engine: ServingEngine, args) -> None:

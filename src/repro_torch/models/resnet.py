@@ -12,6 +12,12 @@ logits are float32, as the JAX forward's are (its docstring says int32,
 but ``jnp.mean`` of int32 returns float32 and the fc product promotes):
 the mean is an exact float32 sum divided by H*W, the fc product a plain
 float32 ``matmul`` (never TF32).
+
+On the card, :func:`capture_forward_int8` captures the whole int8 forward
+(53 convolutions, max-pool, pool and fc at ResNet-50) at one image shape
+as one CUDA graph; a call copies the image into the graph's static input
+and replays it.  The JAX package does not jit this forward, so the graph
+is the port's own.
 """
 from __future__ import annotations
 
@@ -24,7 +30,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.quant import quantize
 from repro_torch.kernels import ops
-from repro_torch.kernels.common import resolve_device
+from repro_torch.kernels.common import CapturedGraph, capture_graph, resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -158,12 +164,53 @@ def _trunk_int8(variant: int, params: dict, img: torch.Tensor) -> torch.Tensor:
 def forward_int8(variant: int, params: dict, img: torch.Tensor) -> torch.Tensor:
     """Single-image INT8 inference: img (H, W, 3) int8 -> (num_classes,)
     float32 logits on the activation x weight grid."""
-    x = _trunk_int8(variant, params, img)
-    # global average pool (paper: a conv layer; mean here, as the JAX
-    # forward): the float32 sum of int8 values is exact
+    return _head(params, _trunk_int8(variant, params, img))
+
+
+def _head(params: dict, x: torch.Tensor) -> torch.Tensor:
+    """Global average pool (paper: a conv layer; a mean here, as the JAX
+    forward: the float32 sum of int8 values is exact) and the fc."""
     feat = x.to(torch.float32).sum(dim=(0, 1)) / float(x.shape[0] * x.shape[1])
     fc = params["fc"]
     return feat @ fc["w"].q.to(torch.float32) + fc["bias"].to(torch.float32)
+
+
+@dataclasses.dataclass(eq=False)
+class CapturedForward:
+    """:func:`forward_int8` as one CUDA graph over static tensors: the
+    input ``image``, and the ``trunk`` and ``logits`` that every call
+    overwrites.  The graph reads the parameters where they lie, so
+    weights rewritten in place (an NIU round) take effect at the next
+    call."""
+    graph: CapturedGraph
+    image: torch.Tensor
+    trunk: torch.Tensor
+    logits: torch.Tensor
+
+    def __call__(self, img: torch.Tensor) -> torch.Tensor:
+        """The logits of ``img`` (a copy: the next call overwrites the
+        graph's)."""
+        self.image.copy_(img)
+        self.graph.replay()
+        return self.logits.clone()
+
+
+def capture_forward_int8(variant: int, params: dict, image_shape) -> CapturedForward:
+    """Capture the int8 forward of ``variant`` at ``image_shape`` (H, W, 3)
+    on the parameters' card: one eager forward (on a zero image) builds
+    and configures the kernels and their scratch, then the capture.  Only
+    the card has CUDA graphs: on the CPU, call :func:`forward_int8`."""
+    dev = params["fc"]["w"].q.device
+    if dev.type != "cuda":
+        raise ValueError(f"CUDA graphs need parameters on the card, not on {dev}")
+    image = torch.zeros(tuple(image_shape), dtype=torch.int8, device=dev)
+
+    def forward():
+        trunk = _trunk_int8(variant, params, image)
+        return trunk, _head(params, trunk)
+
+    graph, (trunk, logits) = capture_graph(forward)
+    return CapturedForward(graph, image, trunk, logits)
 
 
 def forward_float(variant: int, params: dict, img: torch.Tensor) -> torch.Tensor:

@@ -4,25 +4,39 @@
 Request flow (continuous batching, decode-centric):
 
     submit(prompt tokens) -> queue
-    engine round: admit waiting requests into free slots (bucketed batched
-                  prefill, one call per length bucket), then run a block of
-                  decode rounds entirely on the device.
+    engine round: (AIMC noise refresh,) admit waiting requests into free
+                  slots (bucketed batched prefill, one call per length
+                  bucket), then run a block of decode rounds entirely on
+                  the device.
 
 The JAX engine runs a decode block as one jitted ``lax.scan`` with the
-cache and state donated.  Here a block is a Python loop of ``R`` rounds
-that updates preallocated cache and state tensors in place: sampling,
-append, per-slot position/remaining bookkeeping and the done flags all
-stay on the device, and nothing is read back inside the block.  At the
-block boundary the host reads ``active`` and ``out_len`` (and a finished
-request's tokens) -- the same designed sync points as the reference.
+cache and state donated.  Here a block of ``R`` rounds updates
+preallocated cache and state tensors in place: sampling, append,
+per-slot position/remaining bookkeeping and the done flags all stay on
+the device, and nothing is read back inside the block.  On the card the
+block is a CUDA graph: one graph per power-of-two ``R`` up to
+``max_decode_block``, captured by :meth:`ServingEngine.warmup` (or at its
+first use), all in one memory pool, and replayed; ``eager=True`` runs the
+same rounds as a Python loop instead (the CPU always does).  A capture
+that fails raises: nothing falls back to the loop.  Captures are counted
+by ``tracing`` (kind ``"decode"``), as the reference counts jit traces.
+At the block boundary the host reads ``active`` and ``out_len`` (and a
+finished request's tokens) -- the same designed sync points as the
+reference.
 
 Dummy rows of a padded admit batch are never scattered: the host knows
 how many rows are real and only those are written, where the reference
 relies on out-of-bounds scatters being dropped.
 
+With ``ServeConfig.aimc`` the engine serves through a
+:class:`~repro_torch.core.aimc.NoiseInjectionUnit`: it refreshes the
+weights every ``aimc_refresh_every`` rounds, in place, into the tensors
+the captured graphs read, and caps a decode block at one round, as the
+reference does.
+
 Not in this slice (ROADMAP queue 1): the host-sampling path, weight
-streaming (``--stream``), multi-PU staged decode, AIMC noise, and CUDA
-graph capture of the decode block.
+streaming (``--stream``), multi-PU staged decode, and CUDA-graph capture
+of the bucketed prefill (it runs eagerly).
 """
 from __future__ import annotations
 
@@ -34,9 +48,11 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.analysis.sanitize import TraceCounter
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.aimc import AIMCNoiseModel, NoiseInjectionUnit
 from repro_torch.kernels import decode as kdecode
-from repro_torch.kernels.common import resolve_device
+from repro_torch.kernels.common import capture_graph, resolve_device
 from repro_torch.models import api as model_api
 
 
@@ -57,6 +73,10 @@ class ServeConfig:
     # hand-written CUDA decode kernels on the per-token hot path; the
     # composed PyTorch path (False) is the A/B reference
     decode_kernels: bool = False
+    # AIMC noise emulation (paper SS VI): the NIU refreshes the weights
+    # every ``aimc_refresh_every`` engine rounds
+    aimc: Optional[AIMCNoiseModel] = None
+    aimc_refresh_every: int = 1
 
 
 @dataclasses.dataclass
@@ -91,9 +111,14 @@ def default_prefill_buckets(max_len: int) -> Tuple[int, ...]:
 
 
 class ServingEngine:
-    """Continuous-batching LM server over the port's model API."""
+    """Continuous-batching LM server over the port's model API.
 
-    def __init__(self, cfg: ModelConfig, params: Any, serve_cfg: ServeConfig, device=None):
+    ``eager=True`` runs the decode blocks as a Python loop on the card
+    instead of replaying their CUDA graphs (the A/B reference of the
+    capture; the CPU always runs eagerly)."""
+
+    def __init__(self, cfg: ModelConfig, params: Any, serve_cfg: ServeConfig, device=None,
+                 *, eager: bool = False):
         if serve_cfg.decode_kernels and not cfg.decode_kernels:
             cfg = dataclasses.replace(cfg, decode_kernels=True)
         self.device = resolve_device(device)
@@ -105,6 +130,21 @@ class ServingEngine:
         self.api = model_api.get_api(cfg)
         self.serve_cfg = serve_cfg
         self.params = params
+        # AIMC: the NIU's output pytree is what every round reads; a
+        # refresh rewrites its tensors in place
+        self.niu: Optional[NoiseInjectionUnit] = None
+        self.aimc_refreshes = 0
+        if serve_cfg.aimc is not None and serve_cfg.aimc.enabled():
+            self.niu = NoiseInjectionUnit(params, serve_cfg.aimc, seed=serve_cfg.seed)
+            self.params = self.niu.params
+        # decode blocks as CUDA graphs on the card, one per block length
+        self.cuda_graphs = self.device.type == "cuda" and not eager
+        self._graphs: Dict[int, Any] = {}
+        self._pool = None
+        # captures by kind, as the reference counts jit traces
+        # (repro.analysis.sanitize); trace_counts aliases the live dict
+        self.tracing = TraceCounter(("decode", "prefill"))
+        self.trace_counts: Dict[str, int] = self.tracing.counts
 
         self._queue: deque[Request] = deque()
         self._uid = 0
@@ -170,13 +210,14 @@ class ServingEngine:
         return self.completed
 
     def warmup(self):
-        """Run every (prompt bucket x pow2 admit width) prefill shape and
-        every pow2 decode-block length once, so the kernel library is
-        built and loaded, and the allocator and matmul libraries are warm
-        before live traffic.  Warmup admissions scatter no row and no slot
-        is active, so the served state is untouched -- except the sampling
-        generator, which each call advances like a live one when
-        ``temperature > 0``."""
+        """Run every (prompt bucket x pow2 admit width) prefill shape once
+        and, for every pow2 decode-block length, the block once and (on
+        the card) its CUDA-graph capture, so the kernel library is built
+        and loaded, and the allocator and matmul libraries are warm before
+        live traffic, which then captures nothing.  Warmup admissions
+        scatter no row and no slot is active, so the served state is
+        untouched -- except the sampling generator, which each call
+        advances like a live one when ``temperature > 0``."""
         sc = self.serve_cfg
         nbs, nb = [], 1
         while nb < _pow2_ceil(sc.max_batch):
@@ -195,13 +236,19 @@ class ServingEngine:
                 )
         R = 1
         while R <= sc.max_decode_block:
-            self._decode_block_impl(self.params, self._cache, self._state, R)
+            if R not in self._graphs:
+                self._decode_block(R)
             R *= 2
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
     def step(self):
-        """One engine round: admission, then one decode block."""
+        """One engine round: the NIU's refresh when it is due, admission,
+        then one decode block."""
+        sc = self.serve_cfg
+        if self.niu is not None and self.rounds % sc.aimc_refresh_every == 0:
+            self.niu.refresh()
+            self.aimc_refreshes += 1
         self._step_device()
 
     # ======================================================================
@@ -213,8 +260,12 @@ class ServingEngine:
         temperature draw from the engine's generator."""
         sc = self.serve_cfg
         if sc.temperature > 0:
+            # torch.multinomial's own draw for one sample (argmax of p / q,
+            # q ~ Exp(1)), without its check that reads the probabilities
+            # back to the host, which a CUDA graph cannot capture
             probs = torch.softmax(logits.float() / sc.temperature, dim=-1)
-            return torch.multinomial(probs, 1, generator=self._gen)[:, 0].to(torch.int32)
+            q = torch.empty_like(probs).exponential_(1, generator=self._gen)
+            return torch.argmax(probs / q, dim=-1).to(torch.int32)
         return torch.argmax(logits, dim=-1).to(torch.int32)
 
     def _apply_eos(self, done, tok):
@@ -254,6 +305,26 @@ class ServingEngine:
             )
             self._postdecode_update(state, logits)
         return cache, state
+
+    def _decode_block(self, n_rounds: int):
+        """``n_rounds`` decode rounds: on the card a replay of the block's
+        CUDA graph (captured at the length's first use, whose eager run on
+        the capture stream is then the block), else the eager loop."""
+        if not self.cuda_graphs:
+            self._decode_block_impl(self.params, self._cache, self._state, n_rounds)
+            return
+        graph = self._graphs.get(n_rounds)
+        if graph is not None:
+            graph.replay()
+            return
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        self.tracing.bump("decode")
+        sampled = (self._gen,) if self.serve_cfg.temperature > 0 else ()
+        self._graphs[n_rounds], _ = capture_graph(
+            lambda: self._decode_block_impl(self.params, self._cache, self._state, n_rounds),
+            pool=self._pool, generators=sampled,
+        )
 
     def _admit_impl(self, params, cache, state, tokens, lengths, slots, max_new):
         """Batched prefill of one length bucket + on-device admission.
@@ -360,10 +431,12 @@ class ServingEngine:
         # with admissions waiting, sync when the earliest slot frees;
         # with an empty queue run until the last slot could finish
         r = min(remaining) if self._queue else max(remaining)
-        r = max(1, min(r, sc.max_decode_block))
+        # with the NIU on, every round sees a fresh noise instance
+        cap = 1 if self.niu is not None else sc.max_decode_block
+        r = max(1, min(r, cap))
         R = 1 << (r.bit_length() - 1)          # largest power of two <= r
         t0 = time.perf_counter()
-        self._decode_block_impl(self.params, self._cache, self._state, R)
+        self._decode_block(R)
         # the designed block-boundary sync: two (B,) vectors after R rounds
         active, out_len = torch.stack(
             [self._state["active"].to(torch.int32), self._state["out_len"]]
@@ -407,6 +480,10 @@ class ServingEngine:
             "kernel_launches_qkv": float(kdecode.fused_qkv.launches),
             "kernel_launches_attn": float(kdecode.fused_decode_attention.launches),
             "kernel_launches_mlp": float(kdecode.fused_mlp.launches),
+            "cuda_graphs": float(self.cuda_graphs),
+            "decode_traces": float(self.trace_counts["decode"]),
+            "prefill_traces": float(self.trace_counts["prefill"]),
+            "aimc_refreshes": float(self.aimc_refreshes),
         }
         for b, times in sorted(self.prefill_bucket_s.items()):
             out[f"prefill_s_bucket{b}"] = float(np.mean(times))

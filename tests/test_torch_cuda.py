@@ -548,3 +548,89 @@ def test_niu_plan_two_refreshes_give_equal_bits(gen):
     assert not all(torch.equal(a, b) for a, b in zip(first, plan.refresh(100)))
     # the one-matrix entry point draws the same round as the plan
     assert all(torch.equal(ops.niu_refresh(q, e, 99), a) for (q, e), a in zip(mats, first))
+
+
+# ---------------------------------------------- CUDA graphs and the NIU unit --
+
+
+@pytest.mark.parametrize("kernels", [False, True])
+@pytest.mark.parametrize("temperature", [0.0, 0.8])
+def test_smoke_engine_captured_equals_eager(gen, kernels, temperature):
+    """The decode blocks replayed as CUDA graphs serve what the eager loop
+    serves (greedy and sampled: a replay advances the generator as the
+    eager rounds do), count the launches each replay makes, and capture
+    nothing after warmup."""
+    from repro_torch.analysis.sanitize import retrace_guard
+    from repro_torch.models import transformer
+
+    cfg = smoke_variant(get_config("olmo-1b"))
+    params = transformer.init_params(cfg, 0, "cuda")
+    out = {}
+    for eager in (True, False):
+        eng = ServingEngine(cfg, params, ServeConfig(
+            max_batch=4, max_len=64, max_new_tokens=9, decode_kernels=kernels,
+            temperature=temperature, seed=3), "cuda", eager=eager)
+        eng.warmup()
+        assert eng.trace_counts["decode"] == (0 if eager else 6)
+        rng = np.random.default_rng(5)
+        for n in (9, 14, 6, 30, 3):
+            eng.submit(rng.integers(0, cfg.vocab, n).astype(np.int32))
+        decode.reset_launches()
+        with retrace_guard(eng.tracing):
+            eng.run_until_drained()
+        for fn in decode.KERNELS:
+            assert fn.launches == (cfg.n_layers * eng.decode_rounds if kernels else 0)
+        out[eager] = {r.uid: r.out_tokens for r in eng.completed}
+    assert out[True] == out[False]
+
+
+def test_captured_resnet18_equals_eager(gen):
+    from repro_torch.models import resnet
+
+    params = resnet.init_params(18, 0, "cuda", num_classes=10)
+    img = _i8(gen, 28, 28, 3, lo=-100, hi=100)
+    fwd = resnet.capture_forward_int8(18, params, img.shape)
+    for seed in (1, 2):
+        x = _i8(torch.Generator(device="cuda").manual_seed(seed), 28, 28, 3, lo=-100, hi=100)
+        common.reset_launches()
+        got = fwd(x)
+        torch.cuda.synchronize()
+        assert common.launch_counts()["int8_gemm"] == 20
+        assert torch.equal(fwd.trunk, resnet._trunk_int8(18, params, x))
+        assert torch.equal(got, resnet.forward_int8(18, params, x))
+
+
+def test_capture_graph_counts_launches_per_replay(gen):
+    x, w_up, w_gate, w_down = (_rnd(gen, 8, 256), _rnd(gen, 256, 512, scale=0.05),
+                               _rnd(gen, 256, 512, scale=0.05), _rnd(gen, 512, 256, scale=0.05))
+    decode.reset_launches()
+    graph, y = common.capture_graph(lambda: decode.fused_mlp(x, w_up, w_gate, None, w_down))
+    assert decode.fused_mlp.launches == 1          # the warm-up run; the capture launched nothing
+    x.copy_(_rnd(gen, 8, 256))
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert decode.fused_mlp.launches == 3 and graph.launches == {decode.fused_mlp: 1}
+    assert torch.equal(y, decode.fused_mlp(x, w_up, w_gate, None, w_down))
+
+
+def test_niu_unit_on_card_rewrites_the_same_tensors(gen):
+    from repro_torch.core.aimc import AIMCNoiseModel, NoiseInjectionUnit
+    from repro_torch.models import resnet
+
+    params = resnet.init_params(18, 0, "cuda", num_classes=10)
+    model = AIMCNoiseModel(prog_noise_scale=0.2, read_noise_scale=0.04)
+    niu = NoiseInjectionUnit(params, model, target_filter=lambda p, leaf: p[-1] == "w")
+    ptrs = [o.data_ptr() for o in niu.plan.outs]
+    for seed in (5, 6):
+        out = niu.refresh(torch.Generator(device="cuda").manual_seed(seed))
+        assert out is niu.params and [o.data_ptr() for o in niu.plan.outs] == ptrs
+        seeds = torch.randint(0, 2 ** 31 - 1, (len(ptrs),), device="cuda", dtype=torch.int32,
+                              generator=torch.Generator(device="cuda").manual_seed(seed))
+        for m, (name, layer) in enumerate(params.items()):
+            q = layer["w"].q
+            want = niu_mod.niu_refresh_ref(q.reshape(-1, q.shape[-1]), layer["w"].exp, seeds[m],
+                                           prog_noise_scale=0.2, read_noise_scale=0.04,
+                                           drift=model.drift())
+            assert torch.equal(out[name]["w"].q.reshape(want.shape), want), name
+            assert out[name]["w"].exp is layer["w"].exp and out[name]["bias"] is layer["bias"]

@@ -4,8 +4,8 @@ Each plain PyTorch version (what a CPU tensor runs) is compared with the
 JAX Pallas kernel, run through the Pallas interpreter as
 ``tests/test_kernels.py`` and ``tests/test_niu_kernel.py`` run it, and
 with the JAX oracle, on the same numpy inputs -- bit for bit: the GEMM,
-im2col and conv are integer arithmetic, and the NIU's float32 steps round
-where XLA's do.  The cases mirror those two files.  The CUDA kernels run
+im2col and conv are integer arithmetic; the NIU is equal but where an ulp
+of difference in XLA's transcendentals flips a tie (``_niu_case``).  The cases mirror those two files.  The CUDA kernels run
 only on the card (``chip_smoke.py``, ``tests/test_torch_cuda.py``).
 """
 import importlib
@@ -24,6 +24,7 @@ from repro_torch.kernels import common, ops  # noqa: E402
 from repro_torch.models import resnet  # noqa: E402
 
 kgemm = importlib.import_module("repro_torch.kernels.int8_gemm")
+kniu = importlib.import_module("repro_torch.kernels.niu")
 
 
 @pytest.fixture(autouse=True)
@@ -238,11 +239,25 @@ def test_conv2d_int8_matches_jax(h, cin, cout, k, stride, pad, relu, residual):
 # ----------------------------------------------------------------- NIU ----
 
 
+NIU_MAX_TIES = 1e-4     # share of a case's elements that may differ at a tie
+
+
 def _niu_case(against, q, exp, seed, **kw):
+    """The port's NIU against the JAX one under the contract of
+    ``repro_torch.kernels.niu``: equal at every element but those whose
+    float32 value before rounding lies within 2 ulps of a half-integer
+    (an ulp of difference in XLA's ``log``/``cos`` flips them), where
+    they differ by exactly 1, at most ``NIU_MAX_TIES`` of the elements."""
     fn = jniu.niu_refresh if against == "pallas" else jniu.niu_refresh_ref
-    want = fn(jnp.asarray(q), jnp.int32(exp), seed, **kw)
-    got = ops.niu_refresh(torch.from_numpy(q), torch.tensor(exp, dtype=torch.int32), seed, **kw)
-    _same(got, want)
+    want = np.asarray(fn(jnp.asarray(q), jnp.int32(exp), seed, **kw)).astype(np.int32)
+    tq, te = torch.from_numpy(q), torch.tensor(exp, dtype=torch.int32)
+    got = ops.niu_refresh(tq, te, seed, **kw)
+    assert got.dtype == torch.int8 and tuple(got.shape) == want.shape
+    g = got.numpy().astype(np.int32)
+    bad = g != want
+    assert (np.abs(g - want)[bad] == 1).all()
+    assert kniu.near_half(kniu.niu_prerounding_ref(tq, te, seed, **kw)).numpy()[bad].all()
+    assert bad.sum() <= NIU_MAX_TIES * q.size, (bad.sum(), q.size)
     return got
 
 

@@ -2,7 +2,9 @@
 
 - :func:`niu.niu_plan` over a mixed set of matrices: its ``refresh`` on
   CPU tensors equals the JAX Pallas kernel (interpret mode) matrix by
-  matrix, bit for bit, with one shared seed and with a seed per matrix;
+  matrix, with one shared seed and with a seed per matrix, bit for bit
+  but at ties that an ulp of difference in XLA's ``log``/``cos`` flips
+  (the NIU's contract, ``repro_torch.kernels.niu``);
 - the kernel's map of blocks to matrices (``niu_first_blocks``, the binary
   search ``niu_block_matrix``, 16 elements a thread) covers every element
   of every matrix exactly once;
@@ -45,6 +47,8 @@ def _no_launches():
 # (shape, exponent); the last is a 3x3 conv's (k, k, Cin, Cout) weights viewed as (k*k*Cin, Cout)
 NIU_MATS = [((1, 1), -9), ((1, 17), 2), ((64, 64), -4), ((300, 200), 0), ((3, 3, 16, 32), -7)]
 NIU_SEEDS = [11, -5, 2 ** 31 - 1, 0, -987654321]
+NIU_MAX_TIES = 1e-4       # share of a case's elements that may differ at a tie
+NIU_GAUSSIAN_ULPS = 4     # the port's Gaussians against XLA's (3 measured on an x86 host)
 
 
 def _niu_mats():
@@ -68,13 +72,52 @@ def test_niu_plan_refresh_matches_jax(kw, per_matrix):
     seed = torch.tensor(NIU_SEEDS, dtype=torch.int32) if per_matrix else 1234
     outs = plan.refresh(seed, **kw)
     assert len(outs) == len(mats)
+    ties, total = 0, 0
     for m, ((q, e), got) in enumerate(zip(mats, outs)):
         s = NIU_SEEDS[m] if per_matrix else 1234
         want = jniu.niu_refresh(jnp.asarray(q.numpy()), jnp.int32(int(e)), s, interpret=True, **kw)
         assert got.dtype == torch.int8 and tuple(got.shape) == tuple(q.shape)
-        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        ties += _ties(got, want, niu.niu_prerounding_ref(q, e, s, **kw))
+        total += q.numel()
         # the one-matrix entry point draws the same round
         assert torch.equal(niu.niu_refresh(q, e, s, **kw), got)
+    assert ties <= NIU_MAX_TIES * total, (ties, total)
+
+
+def _ties(got, want, pre) -> int:
+    """The NIU's contract with the reference (``repro_torch.kernels.niu``):
+    ``got`` equals ``want`` but where the float32 value before rounding,
+    ``pre``, lies within 2 ulps of a half-integer, and there it differs by
+    exactly 1.  Returns how many elements differ."""
+    g, w = got.numpy().astype(np.int32), np.asarray(want).astype(np.int32)
+    bad = g != w
+    assert (np.abs(g - w)[bad] == 1).all()
+    assert niu.near_half(pre).numpy()[bad].all(), pre.numpy()[bad]
+    return int(bad.sum())
+
+
+def test_niu_gaussians_differ_from_xla_by_a_few_ulps():
+    """The cause of the ties above: the port's plain Box-Muller Gaussians
+    and XLA's, on the 300x200 counter array of seed 1234, differ in the
+    last bits of many elements (``torch.log``/``torch.cos`` against XLA's),
+    by at most a few float32 ulps, never in sign."""
+    counter = niu._counter(300, 200, 1234, "cpu")
+    for salt in (niu._SALT_PROG, niu._SALT_READ):
+        got = niu._gaussian(counter, salt).numpy()
+        want = np.asarray(jniu._gaussian(jnp.asarray(counter.numpy().astype(np.uint32)), salt))
+        assert np.array_equal(np.signbit(got), np.signbit(want))
+        ulps = np.abs(got.view(np.int32).astype(np.int64) - want.view(np.int32).astype(np.int64))
+        print(f"salt {salt:#x}: {int((ulps > 0).sum())} of {ulps.size} Gaussians differ from "
+              f"XLA's, by at most {int(ulps.max())} ulps")
+        assert ulps.max() <= NIU_GAUSSIAN_ULPS
+
+
+def test_niu_near_half_finds_the_ties():
+    x = torch.tensor([-69.49999, -69.5, 2.5000002, 2.4, 0.0, 1e-8, 1.5, 7.0], dtype=torch.float32)
+    assert niu.near_half(x).tolist() == [True, True, True, False, False, False, True, False]
+    pre = niu.niu_prerounding_ref(*_niu_mats()[3], 1234)
+    assert torch.equal(niu.niu_refresh_ref(*_niu_mats()[3], 1234),
+                       torch.clamp(torch.round(pre), -128, 127).to(torch.int8))
 
 
 def test_niu_plan_outputs_share_one_aligned_buffer_and_leave_the_weights():

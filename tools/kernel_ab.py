@@ -40,8 +40,9 @@ JSON line:
   (back-to-back calls from a CUDA graph over copies of the operands: no
   host time and a clean L2, where ``Timer`` has both);
 - ``decode_busy_ms`` and ``decode_kernel_ms``: device busy time of one
-  round of a profiled olmo-1b decode block (``chip_smoke.decode_block_profile``),
-  and of it each kernel's time by name.
+  round of a profiled olmo-1b decode block, replayed from its CUDA graph
+  (``chip_smoke.decode_block_profile``; a tree from before the graphs has
+  no such block), and of it each kernel's time by name.
 
 The timer, the model and the trace reader are ``chip_smoke.py``'s, so the
 numbers are comparable with its own.  Run it on a tree and its parent in
@@ -260,7 +261,7 @@ def main() -> int:
     out.update(qkv_and_attention(torch, timer, decode, ref, rnd, x))
 
     # --- the decode round, in situ -------------------------------------------------
-    rounds, _, busy, by_name = chip_smoke.decode_block_profile(torch)
+    rounds, _, busy, by_name, _, _ = chip_smoke.decode_block_profile(torch, eager=False)
     out["decode_busy_ms"] = busy / 1e3 / rounds
     out["decode_kernel_ms"] = {n[:80]: us / 1e3 / rounds for n, us in
                                sorted(by_name.items(), key=lambda kv: -kv[1])[:10]}
