@@ -62,6 +62,26 @@ Phases, in order; any failure raises and the script exits non-zero:
    refresh + replay: the output buffer at the same address every round,
    the first round's logits equal to an eager forward on the refreshed
    weights, top-1 flips, logit SNR and ms a round (refresh, forward).
+2e. ``[stream] resnet``: the paper's weight streaming on the card.  The
+   53 convolutions of one forward and the fc (its weights as the PU's
+   int8 GEMM over the trunk's last map: the forward's own fc is a float32
+   product after the pool) are row-tiled under ``PU_2X`` (64-row tiles,
+   ``core.streaming.gemm_sequence_tiles``); the tile list is printed
+   against the simulator's (``simulator.model_tiles``), with each
+   difference explained; the tiles are planned at ``PU_2X``'s 2 MiB
+   (``plan_streaming``) and run through ``StreamingExecutor``
+   (``runtime.resnet_streaming``): each tile copied from pinned host
+   memory into a 2 MiB device arena on a copy stream, its GEMM through
+   ``int8_gemm`` (the conv mode where the main path takes it).  A first
+   run, then the timed one with launch counts zeroed just before: every
+   call's joined output equal to the resident call's bit for bit, peak
+   residency within the capacity, fetches in the plan's issue order, one
+   ``int8_gemm`` launch a tile and no im2col.  Tiles, bytes, wall time,
+   one pinned copy of the same bytes beside the profiles' link rates, the
+   resident calls' wall time, the executor's walk of the plan alone (no
+   copy, no GEMM), a profile of one streamed run (device busy; the
+   copies' device time and rate; the GEMMs'), and the plan's stall
+   reduction and utilization.
 3. Model step: full-width olmo-1b prefill + one decode step with and
    without the kernels; logits finite and within ``LOGIT_ATOL``.
 4. Serve phase (``[serve]``, ``[graph] serve``): ``repro_torch.launch.serve``'s
@@ -78,6 +98,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``[aimc]`` serve: ``--aimc`` at full width (``AIMC_SERVE_ARGV``),
    captured: no capture after warmup, the weights at the same addresses,
    streams other than the clean run's, tokens/s and the refresh's ms.
+4a. ``[stream] serve``: the serve phase's kernel run again with
+   ``--stream`` (captured): its greedy streams equal the run without it;
+   its ``stream_*`` stats and the planning time, under
+   ``core.pu.h100_host_offload_config`` (asserted).
+4b. ``[plan] paper``: ``repro_torch.examples.resnet_paper --variant 50
+   --plan-only`` (steps 3-4: the two-phase schedule against PU_2x's and
+   PU_1x's URAM, and the simulated Table I row; host-side numpy).
 5. Teacher-forced check: both paths serve the requests again (eager,
    untimed),
    keeping every round's logits; the kernel run is fed the composed
@@ -189,8 +216,10 @@ def card_rates(name: str) -> dict:
         return dict(bytes=2.0e12, bf16=756e12, int8=1513e12, f32=51e12, issue=114 * 128 * 1.755e9)
     if "NVL" in name:
         return dict(bytes=3.9e12, bf16=835e12, int8=1671e12, f32=60e12, issue=132 * 128 * 1.785e9)
-    return dict(bytes=3.35e12, bf16=989e12, int8=1979e12, f32=67e12,     # H100 SXM
-                issue=132 * 128 * 1.98e9)
+    from repro_torch.core import pu     # the H100 SXM's data-sheet values, shared with its profiles
+
+    return dict(bytes=pu.H100_HBM_BW, bf16=pu.H100_BF16_FLOPS, int8=pu.H100_INT8_OPS,
+                f32=pu.H100_F32_FLOPS, issue=132 * 128 * 1.98e9)
 
 
 def bound(rates: dict, nb: float, ops: float = 0.0, kind: str = "bf16"):
@@ -1036,6 +1065,36 @@ def serve_phase(torch, rates):
     return runs
 
 
+def stream_serve_phase(torch, runs):
+    """``[stream] serve``: the kernel path's captured run with
+    ``--stream``: the same greedy streams, the plan's stats."""
+    from repro_torch.core.pu import h100_host_offload_config
+    from repro_torch.launch import serve
+
+    engine = serve_engine(serve, True, False, ["--stream"])
+    st, launches, _ = served(torch, engine)
+    streams = {r.uid: r.out_tokens for r in engine.completed}
+    stream_stats = {k: v for k, v in st.items() if k.startswith("stream_")}
+    print(f"[stream] serve --stream (kernels, captured): {stream_stats} plan_time_s="
+          f"{st['plan_time_s']} tokens_per_s={st['tokens_per_s']}", flush=True)
+    same = streams == runs["kernels"]["streams"]
+    print(f"[stream] serve: greedy streams {'equal' if same else 'DIFFER from'} the run without "
+          f"--stream ({len(streams)} requests)", flush=True)
+    assert same, "planning the weight streaming changed what was served"
+    assert st["stream_capacity_bytes"] == float(h100_host_offload_config().fast_mem_bytes)
+    assert engine.streaming_plan.pu == h100_host_offload_config()
+    del engine
+
+
+def plan_paper_phase():
+    """``[plan] paper``: steps 3-4 of the ResNet example (host-side)."""
+    from repro_torch.examples import resnet_paper
+
+    print("[plan] paper: python -m repro_torch.examples.resnet_paper --variant 50 --plan-only",
+          flush=True)
+    resnet_paper.main(["--variant", str(RESNET), "--plan-only"])
+
+
 def logged_run(torch, kernels: bool, feed=None):
     """An untimed run of the serve phase's requests that keeps every
     round's logits on the card.  With ``feed`` (uid -> stream) each
@@ -1296,6 +1355,82 @@ def graph_resnet_phase(torch, params, img, eager):
     return dict(launches=launches, ms=ms)
 
 
+def stream_resnet_phase(torch, params, img):
+    """``[stream] resnet``: the forward's weight GEMMs streamed tile by
+    tile under the two-phase plan at PU_2x's capacity, each tile's GEMM on
+    the card, held bit for bit against the resident calls."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.core.pu import PU_2X, h100_host_offload_config
+    from repro_torch.core.streaming import StreamingExecutor
+    from repro_torch.kernels import common
+    from repro_torch.runtime import resnet_streaming as rs
+
+    calls = rs.forward_calls(RESNET, params, img)
+    assert len(calls) == N_GEMM + 1 and sum(c.conv_mode for c in calls) == N_CONV_MODE
+    tiles = rs.call_tiles(calls, PU_2X)
+    for line in rs.simulator_differences(calls, RESNET, PU_2X):
+        print(f"[stream] resnet tiles vs the simulator's: {line}", flush=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for c in calls:
+        c.resident()
+    torch.cuda.synchronize()
+    resident_s = time.perf_counter() - t0
+    for attempt in ("first", "timed"):
+        common.reset_launches()                 # count this run only
+        run = rs.stream_calls(calls, PU_2X)
+        launches = common.launch_counts()
+        same = [torch.equal(o, c.out) for o, c in zip(run.outputs, calls)]
+        order = [name for name, _ in run.plan.prefetch_order()]
+        print(f"[stream] resnet {attempt} run: {sum(same)}/{len(calls)} calls equal to the "
+              f"resident calls bit for bit; launches {launches}; peak residency "
+              f"{run.executor.peak_resident_bytes} B (arena high water {run.arena_high_water} B) "
+              f"of {PU_2X.fast_mem_bytes} B; fetches in the plan's issue order: "
+              f"{run.executor.fetches == order}", flush=True)
+        assert all(same), [c.name for c, ok in zip(calls, same) if not ok]
+        assert run.executor.peak_resident_bytes <= PU_2X.fast_mem_bytes
+        assert run.arena_high_water <= PU_2X.fast_mem_bytes
+        assert run.executor.fetches == order
+        assert launches["int8_gemm"] == len(tiles) and launches["im2col"] == 0, launches
+    summ = run.plan.summary()
+    # the same bytes as one pinned copy: the link's rate without per-copy costs
+    host = torch.empty(run.bytes_streamed, dtype=torch.int8).pin_memory()
+    dev = torch.empty(run.bytes_streamed, dtype=torch.int8, device="cuda")
+    bulk = []
+    for _ in range(5):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        dev.copy_(host, non_blocking=True)
+        end.record()
+        torch.cuda.synchronize()
+        bulk.append(start.elapsed_time(end))
+    bulk_rate = run.bytes_streamed / (statistics.median(bulk) * 1e-3)
+    # the executor's own walk of the plan: no copy, no GEMM
+    t0 = time.perf_counter()
+    StreamingExecutor(run.plan, fetch=lambda name: name).run([lambda w: w] * len(tiles))
+    walk_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function("stream_resnet"):
+            rs.stream_calls(calls, PU_2X)
+    window, busy, by_name = device_busy(torch, prof, "stream_resnet")
+    copies = sum(us for n, us in by_name.items() if "Memcpy" in n or "memcpy" in n)
+    gemms = sum(us for n, us in by_name.items() if "int8_gemm" in n)
+    print(f"[stream] resnet profile of one streamed run: {window / 1e3} ms under the profiler, "
+          f"device busy {busy / 1e3} ms (idle share {1 - busy / window}): copies {copies / 1e3} "
+          f"ms = {run.bytes_streamed / copies / 1e3} GB/s, int8_gemm kernels {gemms / 1e3} ms",
+          flush=True)
+    print(f"[stream] resnet: {len(tiles)} tiles, {run.bytes_streamed} B streamed from pinned host "
+          f"memory, wall {run.wall_s * 1e3} ms to the last GEMM (resident calls {resident_s * 1e3} "
+          f"ms; the executor's walk of the plan alone, no copy and no GEMM, {walk_ms} ms); one "
+          f"{run.bytes_streamed}-byte pinned copy {statistics.median(bulk)} ms = {bulk_rate / 1e9} "
+          f"GB/s (median of 5; the PU_2x profile's HBM->URAM link "
+          f"{PU_2X.weight_bw_bytes_per_s / 1e9} GB/s, the H100 host-offload profile's PCIe link "
+          f"{h100_host_offload_config().weight_bw_bytes_per_s / 1e9} GB/s); plan "
+          f"stall_reduction={summ['stall_reduction']} adaptive_util={summ['adaptive_util']} "
+          f"baseline_util={summ['baseline_util']}", flush=True)
+
+
 def aimc_resnet_phase(torch, params, img):
     """AIMC rounds on ResNet-50: the NIU (one launch a round over every
     weight matrix) rewrites the weights a captured forward reads."""
@@ -1413,11 +1548,14 @@ def main() -> int:
     resnet = resnet_phase(torch, rates, params, img)
     graph = graph_resnet_phase(torch, params, img, resnet)
     aimc = aimc_resnet_phase(torch, params, img)
+    stream_resnet_phase(torch, params, img)
     del params, img, timer, resnet
     torch.cuda.empty_cache()
     model_step_phase(torch)
     torch.cuda.empty_cache()
     runs = serve_phase(torch, rates)
+    stream_serve_phase(torch, runs)
+    plan_paper_phase()
     aimc_serve_phase(torch)
     torch.cuda.empty_cache()
     want_streams, want_rounds = forced_phase(torch, runs)

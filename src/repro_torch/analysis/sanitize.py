@@ -10,13 +10,31 @@ raises :class:`RetraceError` when a guarded region captured more than it
 was allowed.  The reference's ``TraceCounter.jit`` has no counterpart:
 the engine bumps the counter where it captures.
 
-The reference's transfer guard and lock-order recorder are not here
-(ROADMAP queue 1, steps 11 and 16).
+The lock-order recorder is the reference's, copied: it wraps
+``StageStreamCore._cond`` (via :func:`instrument_condition`) and records
+every pairwise acquisition order into a process-wide edge registry;
+acquiring A-then-B after B-then-A was seen anywhere is reported by
+:func:`lock_violations`.  It gates on ``REPRO_SANITIZE=1``
+(:func:`enabled`): with the flag unset the factories return plain
+``threading`` objects.  The reference's transfer guard is not here
+(ROADMAP queue 1, step 16).
 """
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, Optional, Sequence
+import dataclasses
+import os
+import threading
+import traceback
+from typing import Dict, List, Optional, Sequence, Tuple
+
+_FALSY = ("", "0", "false", "False", "no")
+
+
+def enabled() -> bool:
+    """True when the runtime sanitizers are switched on
+    (``REPRO_SANITIZE`` set to anything truthy)."""
+    return os.environ.get("REPRO_SANITIZE", "") not in _FALSY
 
 
 class RetraceError(RuntimeError):
@@ -78,3 +96,138 @@ def retrace_guard(
             f"{total} new graph capture(s) inside a retrace_guard "
             f"(allowed {max_new_traces}): {new}"
         )
+
+
+# ---------------------------------------------------------------------------
+# lock-order recorder
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class LockOrderViolation:
+    kind: str      # "order": an inconsistent pairwise order
+    first: str     # lock held / expected
+    second: str    # lock acquired out of order
+    site: str      # file:line of the offending acquisition
+
+
+_tl = threading.local()
+_registry_lock = threading.Lock()
+_edges: Dict[Tuple[str, str], str] = {}
+_violations: List[LockOrderViolation] = []
+
+
+def _held() -> List[str]:
+    held = getattr(_tl, "held", None)
+    if held is None:
+        held = []
+        _tl.held = held
+    return held
+
+
+def _call_site() -> str:
+    # the frame that called acquire(): two sanitize frames sit above it
+    frames = traceback.extract_stack(limit=4)
+    for fr in reversed(frames):
+        if "sanitize" not in (fr.filename or ""):
+            return f"{fr.filename}:{fr.lineno}"
+    return "<unknown>"
+
+
+def reset_lock_monitor() -> None:
+    """Clear the process-wide edge registry and recorded violations."""
+    with _registry_lock:
+        _edges.clear()
+        _violations.clear()
+
+
+def lock_violations() -> List[LockOrderViolation]:
+    """Violations recorded since the last :func:`reset_lock_monitor`."""
+    with _registry_lock:
+        return list(_violations)
+
+
+def _note_acquired(name: str) -> None:
+    held = _held()
+    site = _call_site()
+    with _registry_lock:
+        for prev in held:
+            if prev == name:
+                continue
+            _edges.setdefault((prev, name), site)
+            first_site = _edges.get((name, prev))
+            if first_site is not None:
+                _violations.append(
+                    LockOrderViolation(
+                        kind="order", first=prev, second=name, site=site
+                    )
+                )
+    held.append(name)
+
+
+def _note_released(name: str) -> None:
+    held = _held()
+    for i in range(len(held) - 1, -1, -1):
+        if held[i] == name:
+            del held[i]
+            return
+
+
+class _InstrumentedLock:
+    """A ``threading.Lock``/``RLock`` wrapper feeding the recorder.
+
+    Lock *names* are class-level (e.g. every ``StageStreamCore``
+    instance shares ``"StageStreamCore._cond"``): ordering violations
+    are a property of the code's lock classes, not of instances.
+    """
+
+    def __init__(self, inner, name: str):
+        self._inner = inner
+        self.name = name
+
+    def acquire(self, blocking: bool = True, timeout: float = -1) -> bool:
+        got = self._inner.acquire(blocking, timeout)
+        if got:
+            _note_acquired(self.name)
+        return got
+
+    def release(self) -> None:
+        self._inner.release()
+        _note_released(self.name)
+
+    def __enter__(self):
+        self.acquire()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self.release()
+        return False
+
+
+class _InstrumentedCondition(_InstrumentedLock):
+    """Condition wrapper: acquire/release feed the recorder, the wait
+    and notify family delegates.  ``wait`` keeps the lock "held" from
+    the recorder's view -- while waiting, the thread acquires nothing
+    else through this code path, so edges stay accurate."""
+
+    def wait(self, timeout: Optional[float] = None) -> bool:
+        return self._inner.wait(timeout)
+
+    def wait_for(self, predicate, timeout: Optional[float] = None):
+        return self._inner.wait_for(predicate, timeout)
+
+    def notify(self, n: int = 1) -> None:
+        self._inner.notify(n)
+
+    def notify_all(self) -> None:
+        self._inner.notify_all()
+
+
+def instrument_condition(name: str, cond=None, active: Optional[bool] = None):
+    """A (possibly instrumented) condition variable: a plain
+    ``threading.Condition`` when the sanitizers are off (or ``active`` is
+    false), recorder-wrapped otherwise."""
+    inner = cond if cond is not None else threading.Condition()
+    if not (enabled() if active is None else active):
+        return inner
+    return _InstrumentedCondition(inner, name)

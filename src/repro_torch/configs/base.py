@@ -72,6 +72,59 @@ class ModelConfig:
     def is_moe(self) -> bool:
         return self.n_experts > 0
 
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim
+
+    def param_count(self) -> int:
+        """Total parameters (analytic; used for roofline MODEL_FLOPS)."""
+        d, f, v, l = self.d_model, self.d_ff, self.vocab, self.n_layers
+        hd = self.head_dim
+        emb = v * d * (1 if self.tie_embeddings else 2)
+        attn = d * hd * (self.n_heads + 2 * self.n_kv_heads) + self.n_heads * hd * d
+        if self.family in ("ssm",):
+            attn = 0
+        mlp_mats = 3 if self.mlp == "swiglu" else 2
+        if self.is_moe:
+            mlp = self.n_experts * mlp_mats * d * f + d * self.n_experts
+        else:
+            mlp = mlp_mats * d * f
+        ssm = 0
+        if self.family in ("ssm", "hybrid"):
+            din, ns, nh = self.d_inner, self.ssm_state, self.ssm_heads
+            g = 1  # single B/C group
+            ssm = (
+                d * (2 * din + 2 * g * ns + nh)   # in_proj (z,x,B,C,dt)
+                + self.ssm_conv * (din + 2 * g * ns)
+                + din * d                          # out_proj
+                + 2 * nh + din                     # A, D, norm
+            )
+        if self.family == "ssm":
+            return emb + l * (ssm + 2 * d) + d
+        if self.family == "hybrid":
+            shared = attn + mlp_mats * d * self.d_ff + 2 * d
+            n_attn = l // max(self.hybrid_attn_every, 1)
+            return emb + l * (ssm + 2 * d) + shared + d
+        core = l * (attn + mlp + 2 * d) + d
+        if self.family == "encdec":
+            enc = self.encoder_layers * (attn + mlp + 2 * d) + d
+            cross = self.n_layers * (attn + d)
+            return emb + core + enc + cross
+        return emb + core
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: only top-k experts)."""
+        if not self.is_moe:
+            return self.param_count()
+        d, f = self.d_model, self.d_ff
+        mlp_mats = 3 if self.mlp == "swiglu" else 2
+        dense_like = self.param_count() - self.n_layers * self.n_experts * mlp_mats * d * f
+        return dense_like + self.n_layers * self.top_k * mlp_mats * d * f
+
 
 @dataclasses.dataclass(frozen=True)
 class ShapeConfig:

@@ -1,0 +1,313 @@
+"""Cycle-approximate PU pipeline simulator (paper SS IV--V); a copy of
+``repro.core.simulator``, bit for bit.
+
+Models one PU's full per-layer pipeline -- activation fetch from HBM,
+systolic-array compute, post-processing, write-back -- to reproduce the
+paper's measurements: Fig. 5(a) per-layer ResNet-50 latencies, Table I
+FPS / FPS-per-TOPS, and the scheduler's stall behaviour (Fig. 5(b,c)).
+
+Latency model per layer (GEMM of weight N x M against acts M x P):
+  compute  = ceil(N/R_SA) * P * ceil(M/C_SA) / f_fast      (SS II-B rounds)
+  act_in   = M * P bytes / act_bw     (int8, streamed once per N-round reuse
+             from the ping-pong buffer; reused ceil(N/R_SA) times on-chip)
+  act_out  = N * P / act_bw
+  latency ~= max(compute, act_in, act_out) + pipeline fill
+The paper reports near-optimal per-layer efficiency when the WRB read rate
+exceeds the SA write rate (R_g >= R_SA / ceil(M/C_SA)); we surface that
+check per layer.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import TYPE_CHECKING, List, Literal, Optional, Sequence, Tuple
+
+from repro_torch.core.pu import PUConfig, TileCost
+from repro_torch.core import scheduler as sched
+
+if TYPE_CHECKING:  # repro_torch.plan imports core.pu: keep the cycle lazy
+    from repro_torch.plan import ExecutionPlan, PartitionedPlan
+
+
+@dataclasses.dataclass(frozen=True)
+class GemmLayer:
+    """One GEMM-ified layer: weights (n x m) applied to (m x p) acts."""
+
+    name: str
+    n: int          # output channels / rows of the weight matrix
+    m: int          # reduction dim (k*k*C_in for conv)
+    p: int          # activation columns (OH*OW for conv, tokens for FC)
+    residual: bool = False   # fused residual addition (ResNet shortcut)
+
+    @property
+    def macs(self) -> int:
+        return self.n * self.m * self.p
+
+    @property
+    def weight_bytes(self) -> int:
+        return self.n * self.m   # int8
+
+
+@dataclasses.dataclass
+class LayerSim:
+    layer: GemmLayer
+    compute_s: float
+    act_in_s: float
+    act_out_s: float
+    latency_s: float
+    wrb_rate_ok: bool
+
+
+@dataclasses.dataclass
+class ModelSim:
+    layers: List[LayerSim]
+    pu: PUConfig
+    schedule: sched.TwoPhaseResult
+    frame_s_resident: float       # all weights on-chip (Fig. 5a conditions)
+    frame_s_scheduled: float      # with two-phase weight streaming stalls
+    plan: Optional["ExecutionPlan"] = None   # underlying repro_torch.plan IR
+
+    @property
+    def fps_resident(self) -> float:
+        return 1.0 / self.frame_s_resident
+
+    @property
+    def fps_scheduled(self) -> float:
+        return 1.0 / self.frame_s_scheduled
+
+    @property
+    def total_macs(self) -> int:
+        return sum(l.layer.macs for l in self.layers)
+
+    @property
+    def efficiency(self) -> float:
+        """Measured/available TOPS in the SA (the paper reports up to 98%)."""
+        ideal = 2.0 * self.total_macs / self.pu.peak_ops_per_s
+        return ideal / self.frame_s_scheduled
+
+
+def simulate_layer(pu: PUConfig, layer: GemmLayer, r_g: int = 8) -> LayerSim:
+    rounds = math.ceil(layer.n / pu.r_sa)
+    waves_per_round = layer.p
+    cycles_per_wave = math.ceil(layer.m / pu.c_sa)
+    compute_s = rounds * waves_per_round * cycles_per_wave / pu.fast_clock_hz
+    act_in_s = layer.m * layer.p / pu.act_bw_bytes_per_s
+    residual_in_s = (layer.n * layer.p / pu.act_bw_bytes_per_s) if layer.residual else 0.0
+    act_out_s = layer.n * layer.p / pu.act_bw_bytes_per_s
+    # Activations stream in once and are reused on-chip for all N-rounds;
+    # I/O overlaps compute via the ping-pong buffers, so steady-state layer
+    # latency is the max of the streams plus the SA fill (R_SA + C_SA deep).
+    fill_s = (pu.r_sa + pu.c_sa + cycles_per_wave) / pu.fast_clock_hz
+    latency_s = max(compute_s, act_in_s + residual_in_s, act_out_s) + fill_s
+    # WRB read rate must beat the SA write rate for no back-pressure (SS V):
+    wrb_ok = r_g >= pu.r_sa / cycles_per_wave
+    return LayerSim(
+        layer=layer,
+        compute_s=compute_s,
+        act_in_s=act_in_s + residual_in_s,
+        act_out_s=act_out_s,
+        latency_s=latency_s,
+        wrb_rate_ok=wrb_ok,
+    )
+
+
+def model_tiles(pu: PUConfig, layers: Sequence[GemmLayer]) -> List[TileCost]:
+    """Tile every layer the way the scheduler sees it (R_SA x M_v tiles)."""
+    tiles: List[TileCost] = []
+    for layer in layers:
+        tiles.extend(pu.gemm_tiles(layer.n, layer.m, layer.p))
+    return tiles
+
+
+def simulate_model(
+    pu: PUConfig,
+    layers: Sequence[GemmLayer],
+    r_g: int = 8,
+    schedule_mode: Literal["two_phase", "baseline", "resident"] = "two_phase",
+) -> ModelSim:
+    from repro_torch.plan import plan_cached
+
+    per_layer = [simulate_layer(pu, l, r_g) for l in layers]
+    frame_resident = sum(l.latency_s for l in per_layer)
+
+    tiles = model_tiles(pu, layers)
+    # single planning path: the content-hashed cache means sweeping the
+    # same model across schedule modes (or re-running a benchmark) plans
+    # once per (tiles, capacity) pair
+    exec_plan = plan_cached(tiles, pu.fast_mem_bytes)
+    result = exec_plan.to_two_phase()
+    if schedule_mode == "resident":
+        stall = 0.0
+    elif schedule_mode == "baseline":
+        stall = exec_plan.baseline_stall
+    else:
+        stall = exec_plan.total_stall
+    frame_scheduled = frame_resident + stall
+    return ModelSim(
+        layers=per_layer,
+        pu=pu,
+        schedule=result,
+        frame_s_resident=frame_resident,
+        frame_s_scheduled=frame_scheduled,
+        plan=exec_plan,
+    )
+
+
+# ----------------------------------------------------------------------
+# ResNet GEMM-layer tables (ImageNet 224x224), following the paper's
+# evaluation choices: avg-pool executed as a Conv layer ([2]'s approach),
+# max-pool fused into post-processing, first conv run as a GEMM with
+# host-side IM2COL (patches padded 147 -> 160 bytes for HBM alignment).
+# ----------------------------------------------------------------------
+
+
+def _conv_out(h: int, k: int, s: int, p: int) -> int:
+    return (h + 2 * p - k) // s + 1
+
+
+def resnet_gemm_layers(variant: Literal[18, 50]) -> List[GemmLayer]:
+    layers: List[GemmLayer] = []
+    h = 224
+    # conv1: 7x7/2, 64ch; paper pads host IM2COL patches 147->160 elements.
+    h = _conv_out(h, 7, 2, 3)
+    layers.append(GemmLayer("conv1", n=64, m=160, p=h * h))
+    # max-pool 3x3/2 fused in post-processing (SS V) -- changes spatial only
+    h = _conv_out(h, 3, 2, 1)
+
+    if variant == 18:
+        stage_blocks = [2, 2, 2, 2]
+        stage_ch = [64, 128, 256, 512]
+        cin = 64
+        for s_i, (blocks, ch) in enumerate(zip(stage_blocks, stage_ch)):
+            for b in range(blocks):
+                stride = 2 if (s_i > 0 and b == 0) else 1
+                h_out = _conv_out(h, 3, stride, 1)
+                layers.append(
+                    GemmLayer(f"s{s_i}b{b}conv1", n=ch, m=9 * cin, p=h_out * h_out)
+                )
+                layers.append(
+                    GemmLayer(
+                        f"s{s_i}b{b}conv2", n=ch, m=9 * ch, p=h_out * h_out,
+                        residual=True,
+                    )
+                )
+                if stride != 1 or cin != ch:
+                    layers.append(
+                        GemmLayer(
+                            f"s{s_i}b{b}down", n=ch, m=cin, p=h_out * h_out
+                        )
+                    )
+                cin = ch
+                h = h_out
+        feat = 512
+    else:
+        stage_blocks = [3, 4, 6, 3]
+        stage_ch = [64, 128, 256, 512]
+        cin = 64
+        for s_i, (blocks, ch) in enumerate(zip(stage_blocks, stage_ch)):
+            for b in range(blocks):
+                stride = 2 if (s_i > 0 and b == 0) else 1
+                h_out = _conv_out(h, 3, stride, 1)
+                layers.append(
+                    GemmLayer(f"s{s_i}b{b}conv1", n=ch, m=cin, p=h * h)
+                )
+                layers.append(
+                    GemmLayer(f"s{s_i}b{b}conv2", n=ch, m=9 * ch, p=h_out * h_out)
+                )
+                layers.append(
+                    GemmLayer(
+                        f"s{s_i}b{b}conv3", n=4 * ch, m=ch, p=h_out * h_out,
+                        residual=True,
+                    )
+                )
+                if stride != 1 or cin != 4 * ch:
+                    layers.append(
+                        GemmLayer(
+                            f"s{s_i}b{b}down", n=4 * ch, m=cin, p=h_out * h_out
+                        )
+                    )
+                cin = 4 * ch
+                h = h_out
+        feat = 2048
+    # avg-pool as conv (7x7 window over 7x7 map -> 1x1), then FC 1000.
+    layers.append(GemmLayer("avgpool", n=feat, m=feat * 49 // feat, p=1))
+    layers.append(GemmLayer("fc", n=1000, m=feat, p=1))
+    return layers
+
+
+def simulate_partitioned(
+    pus: Sequence[PUConfig],
+    layers: Sequence[GemmLayer],
+    r_g: int = 8,
+) -> "PartitionedPlan":
+    """Split one model across K PUs as a pipeline (repro_torch.plan.partition).
+
+    Contiguous layer ranges are balanced on the simulator's per-layer
+    latency under each stage's own cost model, then each stage runs its
+    own two-phase weight-transfer schedule against its own URAM capacity
+    and load channel.  Steady-state FPS is set by the bottleneck stage --
+    genuine single-stream scaling, in contrast to ``FleetSim``'s
+    frame-per-PU additivity.
+    """
+    from repro_torch.plan import partition as _partition
+
+    return _partition.partition_layers(
+        list(layers),
+        list(pus),
+        latency_s=lambda pu, l: simulate_layer(pu, l, r_g).latency_s,
+        tiles_of=lambda pu, l: pu.gemm_tiles(l.n, l.m, l.p),
+        name_of=lambda l: l.name,
+        act_bytes_of=lambda l: l.m * l.p,
+    )
+
+
+@dataclasses.dataclass
+class FleetSim:
+    """Multi-PU throughput: replicated frames and/or partitioned pipelines.
+
+    ``sims`` is the paper's SS V evaluation mode: each PU processes one
+    frame independently over its own HBM channels, so FPS is additive.
+    ``pipelines`` is the replacement API for single-stream scaling: one
+    model partitioned across several PU profiles (see
+    :func:`simulate_partitioned`); each pipeline contributes its
+    bottleneck-stage frame rate.
+    """
+
+    sims: List[Tuple[str, ModelSim, int]] = dataclasses.field(
+        default_factory=list
+    )  # (pu name, sim, count)
+    pipelines: List[Tuple[str, "PartitionedPlan", int]] = dataclasses.field(
+        default_factory=list
+    )  # (name, partitioned plan, count)
+
+    @property
+    def fps(self) -> float:
+        return sum(c * s.fps_scheduled for _, s, c in self.sims) + sum(
+            c * p.fps for _, p, c in self.pipelines
+        )
+
+    @property
+    def tops(self) -> float:
+        t = sum(c * s.pu.peak_ops_per_s for _, s, c in self.sims) / 1e12
+        return t + sum(c * p.tops for _, p, c in self.pipelines)
+
+    @property
+    def fps_per_tops(self) -> float:
+        return self.fps / self.tops
+
+    def execute_pipelines(self, n_microbatches: int = 4) -> dict:
+        """Executed mode: validate the analytic pipeline numbers against
+        the real stage-parallel runtime.
+
+        Each partitioned pipeline is run through
+        ``runtime.pipeline_exec.StagePipelineExecutor`` (stage threads,
+        prefetch workers, bounded handoff queues) and the measured
+        throughput/bubble is reported next to the analytic prediction.
+        ``measured_vs_analytic`` below 1.0 is the pipeline-fill cost the
+        additive model ignores; a large gap flags a runtime/cost-model
+        divergence.  The port raises until that runtime is ported.
+        """
+        raise NotImplementedError(
+            "the stage-parallel runtime (runtime/pipeline_exec.py) is not "
+            "ported yet (ROADMAP queue 1, step 11)"
+        )

@@ -1,8 +1,9 @@
-"""Paper-faithful INT8 ResNet inference through the systolic-array dataflow
-(counterpart of ``examples/resnet_paper.py``, steps 1-2).
+"""Paper-faithful reproduction driver: INT8 ResNet inference through the
+systolic-array dataflow + the two-phase weight-transfer schedule
+(counterpart of ``examples/resnet_paper.py``).
 
     PYTHONPATH=src python -m repro_torch.examples.resnet_paper [--variant 18|50] \\
-        [--image-size N] [--device cpu]
+        [--image-size N] [--device cpu] [--plan-only]
 
 Steps, mirroring the paper's SS IV-V evaluation:
   1. Build the quantized (power-of-two scales) ResNet from a seed.
@@ -10,12 +11,14 @@ Steps, mirroring the paper's SS IV-V evaluation:
      CUDA card by default; ``--device cpu`` runs their plain versions) and
      print its time and top-5 classes; on the card, also the forward
      captured as one CUDA graph (median of 30 calls).
+  3. Tile all conv/FC weights into R_SA x M_v tiles and run the two-phase
+     scheduler against the PU's URAM capacity -- Fig. 5(b,c).
+  4. Report the simulated Table I row (FPS / FPS-per-TOPS for 5x PU_1x +
+     5x PU_2x on the Alveo U50) next to the paper's measured values.
 
-The JAX example's steps 3-4 -- the two-phase weight-transfer schedule
-against the PU's URAM (Fig. 5(b,c)) and the simulated Table I row -- need
-``core/scheduler.py`` and ``core/simulator.py``, which call into the
-planner (``repro.plan``); they come with the planner's port (ROADMAP
-queue 1, step 10).
+Steps 3-4 are host-side numpy (the port's scheduler and simulator, which
+give the JAX package's numbers bit for bit); they simulate the paper's
+FPGA, they do not measure the card.  ``--plan-only`` runs just them.
 """
 from __future__ import annotations
 
@@ -26,8 +29,62 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.core import scheduler as sched
+from repro_torch.core import simulator as sim
+from repro_torch.core.pu import PU_1X, PU_2X
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models import resnet
+
+# The paper's Table I: (FPS, FPS per TOPS) of 5x PU_1x + 5x PU_2x
+PAPER_TABLE_I = {18: (1237.7, 268.6), 50: (584.9, 126.9)}
+
+
+def schedule_rows(variant: int) -> list:
+    """Step 3: the two-phase schedule of the ResNet's tiles against each
+    PU's URAM (PU_2x, then PU_1x)."""
+    layers = sim.resnet_gemm_layers(variant)
+    rows = []
+    for pu in (PU_2X, PU_1X):
+        tiles = sim.model_tiles(pu, layers)
+        res = sched.two_phase(tiles, capacity=pu.fast_mem_bytes)
+        rows.append(dict(
+            pu=pu.name, tiles=len(tiles), weight_bytes=sum(t.mem_bytes for t in tiles),
+            capacity_bytes=pu.fast_mem_bytes, baseline_stall_s=res.baseline.total_stall,
+            adaptive_stall_s=res.adaptive.total_stall, stall_reduction=res.stall_reduction,
+            utilization=res.adaptive.utilization,
+        ))
+    return rows
+
+
+def table_row(variant: int) -> dict:
+    """Step 4: the simulated Table I row (5x PU_1x + 5x PU_2x)."""
+    layers = sim.resnet_gemm_layers(variant)
+    fleet = sim.FleetSim(sims=[
+        ("pu1x", sim.simulate_model(PU_1X, layers), 5),
+        ("pu2x", sim.simulate_model(PU_2X, layers), 5),
+    ])
+    return dict(fps=fleet.fps, fps_per_tops=fleet.fps_per_tops, tops=fleet.tops)
+
+
+def print_plan(variant: int) -> None:
+    """Print steps 3 and 4."""
+    for r in schedule_rows(variant):
+        print(
+            f"{r['pu']}: {r['tiles']} tiles, weights {r['weight_bytes'] / 2**20:.1f} MiB vs "
+            f"URAM {r['capacity_bytes'] / 2**20:.1f} MiB -> baseline stall "
+            f"{r['baseline_stall_s'] * 1e3:.3f} ms, adaptive "
+            f"{r['adaptive_stall_s'] * 1e3:.3f} ms "
+            f"(hidden {r['stall_reduction']:.0%}); "
+            f"utilization {r['utilization']:.1%}"
+        )
+    row = table_row(variant)
+    paper = PAPER_TABLE_I[variant]
+    print(
+        f"\nTable I (5x PU_1x + 5x PU_2x, {row['tops']:.3f} TOPS), simulated FPGA:\n"
+        f"  simulated  {row['fps']:8.2f} FPS   {row['fps_per_tops']:6.2f} FPS/TOPS\n"
+        f"  paper      {paper[0]:8.2f} FPS   {paper[1]:6.2f} FPS/TOPS\n"
+        f"  deviation  {abs(row['fps'] - paper[0]) / paper[0]:8.1%}"
+    )
 
 
 def main(argv=None):
@@ -36,7 +93,12 @@ def main(argv=None):
     ap.add_argument("--image-size", type=int, default=56,
                     help="reduced from 224 by default; the dataflow is identical")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    ap.add_argument("--plan-only", action="store_true",
+                    help="only steps 3-4 (host-side schedule and Table I simulation)")
     args = ap.parse_args(argv)
+    if args.plan_only:
+        print_plan(args.variant)
+        return None
     dev = resolve_device(args.device)
 
     # 1. quantized model ---------------------------------------------------
@@ -74,6 +136,9 @@ def main(argv=None):
               f"forward's")
         if not same:
             raise RuntimeError("the captured forward differs from the eager one")
+
+    # 3-4. weight-transfer schedule (Fig. 5b,c) and the Table I row --------
+    print_plan(args.variant)
     return top5
 
 

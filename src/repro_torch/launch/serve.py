@@ -1,7 +1,7 @@
 """Serving launcher of the port: batched requests against olmo-1b.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b \
-        [--smoke] [--decode-kernels] [--aimc] [--device cpu]
+        [--smoke] [--decode-kernels] [--aimc] [--stream] [--device cpu]
 
 Runs on the CUDA card unless ``--device cpu`` is given; without a card
 and without that flag it fails.  Weights are made from ``--seed`` by the
@@ -9,8 +9,14 @@ port's own init.  ``--decode-kernels`` puts the hand-written CUDA decode
 kernels on the per-token hot path; the default composed PyTorch path is
 the A/B reference.  On the card the decode blocks replay CUDA graphs
 captured at warmup.  ``--aimc`` serves through the SS VI noise-injection
-unit: fresh AIMC noise in the weights every round.  Prints a JSON stats
-blob.
+unit: fresh AIMC noise in the weights every round.  ``--stream`` plans
+the host->HBM weight streaming of one decode round with the paper's
+two-phase scheduler under the H100 host-offload profile
+(``core.pu.h100_host_offload_config``) and adds the plan's summary to the
+stats (``stream_*``, and ``plan_time_s``); ``--plan-search beam|anneal``
+searches the schedule instead (seeded by ``--plan-search-seed``).
+Planning changes nothing that is served.  ``--multi-pu`` waits for staged
+decode (ROADMAP queue 1, step 11).  Prints a JSON stats blob.
 """
 from __future__ import annotations
 
@@ -21,8 +27,10 @@ import numpy as np
 
 from repro_torch.configs import ARCH_IDS, get_config, smoke_variant
 from repro_torch.core.aimc import AIMCNoiseModel
+from repro_torch.core.pu import h100_host_offload_config
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models import api as model_api
+from repro_torch.plan import SearchConfig
 from repro_torch.runtime.serving import ServeConfig, ServingEngine
 
 
@@ -51,6 +59,14 @@ def build_parser() -> argparse.ArgumentParser:
                          "per-token hot path")
     ap.add_argument("--aimc", action="store_true",
                     help="AIMC noise emulation (SS VI NIU)")
+    ap.add_argument("--stream", action="store_true",
+                    help="plan host->HBM weight streaming (two-phase "
+                         "scheduler, H100 host-offload profile)")
+    ap.add_argument("--plan-search", default="heuristic",
+                    choices=["heuristic", "beam", "anneal"],
+                    help="schedule-search strategy for the streaming planner")
+    ap.add_argument("--plan-search-seed", type=int, default=0,
+                    help="deterministic seed for --plan-search anneal")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; cpu runs the plain "
@@ -82,6 +98,12 @@ def make_engine(args, eager: bool = False) -> ServingEngine:
         max_decode_block=args.decode_block,
         decode_kernels=args.decode_kernels,
         aimc=AIMCNoiseModel() if args.aimc else None,
+        stream_pu=h100_host_offload_config() if args.stream else None,
+        plan_search=(
+            SearchConfig(strategy=args.plan_search, seed=args.plan_search_seed)
+            if args.plan_search != "heuristic"
+            else None
+        ),
     )
     return ServingEngine(cfg, params, serve_cfg, device, eager=eager)
 

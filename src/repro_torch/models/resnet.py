@@ -161,6 +161,23 @@ def _trunk_int8(variant: int, params: dict, img: torch.Tensor) -> torch.Tensor:
     return _walk(specs, x, x, lambda spec, x, res: _apply_conv(params, spec, x, res))
 
 
+def trunk_int8_calls(variant: int, params: dict, img: torch.Tensor):
+    """The int8 trunk of :func:`forward_int8`, recording each convolution
+    as it runs: -> (last feature map, [(spec, input map, residual or None,
+    output map), ...] in execution order).  A block's downsample conv runs
+    before its last conv, whose residual it is."""
+    calls = []
+
+    def conv(spec, x, res):
+        out = _apply_conv(params, spec, x, res)
+        calls.append((spec, x, res, out))
+        return out
+
+    specs = resnet_conv_specs(variant)
+    x = _maxpool_int8(conv(specs[0], img, None))
+    return _walk(specs, x, x, conv), calls
+
+
 def forward_int8(variant: int, params: dict, img: torch.Tensor) -> torch.Tensor:
     """Single-image INT8 inference: img (H, W, 3) int8 -> (num_classes,)
     float32 logits on the activation x weight grid."""

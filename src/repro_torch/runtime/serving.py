@@ -34,9 +34,15 @@ weights every ``aimc_refresh_every`` rounds, in place, into the tensors
 the captured graphs read, and caps a decode block at one round, as the
 reference does.
 
-Not in this slice (ROADMAP queue 1): the host-sampling path, weight
-streaming (``--stream``), multi-PU staged decode, and CUDA-graph capture
-of the bucketed prefill (it runs eagerly).
+With ``ServeConfig.stream_pu`` the engine plans the weight streaming of
+one decode round with the paper's two-phase scheduler
+(:func:`plan_model_streaming`, host memory -> HBM on the H100 by default)
+and reports the plan in ``stats()`` under ``stream_*``; planning changes
+nothing that is served.
+
+Not in this slice (ROADMAP queue 1): the host-sampling path, multi-PU
+staged decode (``stream_pus`` with two or more profiles raises; step 11),
+and CUDA-graph capture of the bucketed prefill (it runs eagerly).
 """
 from __future__ import annotations
 
@@ -51,9 +57,17 @@ import torch
 from repro_torch.analysis.sanitize import TraceCounter
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.aimc import AIMCNoiseModel, NoiseInjectionUnit
+from repro_torch.core.pu import PUConfig, h100_host_offload_config
+from repro_torch.core.streaming import StreamingPlan, WeightTile, plan_streaming
 from repro_torch.kernels import decode as kdecode
 from repro_torch.kernels.common import capture_graph, resolve_device
 from repro_torch.models import api as model_api
+from repro_torch.plan import (
+    PartitionedPlan,
+    SearchConfig,
+    partition_gemms,
+    snap_boundaries_nonempty,
+)
 
 
 @dataclasses.dataclass
@@ -77,6 +91,14 @@ class ServeConfig:
     # every ``aimc_refresh_every`` engine rounds
     aimc: Optional[AIMCNoiseModel] = None
     aimc_refresh_every: int = 1
+    # weight streaming (host->HBM level); None disables planning
+    stream_pu: Optional[PUConfig] = None
+    # multi-PU partitioned streaming; one profile degenerates to
+    # ``stream_pu``, two or more wait for staged decode (step 11)
+    stream_pus: Optional[List[PUConfig]] = None
+    # schedule-search strategy for the streaming planner (None/heuristic
+    # = the paper's one-shot heuristic; beam/anneal search the schedule)
+    plan_search: Optional[SearchConfig] = None
 
 
 @dataclasses.dataclass
@@ -121,6 +143,11 @@ class ServingEngine:
                  *, eager: bool = False):
         if serve_cfg.decode_kernels and not cfg.decode_kernels:
             cfg = dataclasses.replace(cfg, decode_kernels=True)
+        if serve_cfg.stream_pus and len(serve_cfg.stream_pus) > 1:
+            raise NotImplementedError(
+                "multi-PU staged decode (stream_pus with two or more profiles) "
+                "is not ported yet (ROADMAP queue 1, step 11)"
+            )
         self.device = resolve_device(device)
         if params["embed"].device != self.device:
             raise ValueError(
@@ -137,6 +164,18 @@ class ServingEngine:
         if serve_cfg.aimc is not None and serve_cfg.aimc.enabled():
             self.niu = NoiseInjectionUnit(params, serve_cfg.aimc, seed=serve_cfg.seed)
             self.params = self.niu.params
+        # the paper's weight-streaming plan of one decode round (host-side
+        # numpy; a single profile in stream_pus is the same plan)
+        self.streaming_plan: Optional[StreamingPlan] = None
+        self.plan_s = 0.0
+        stream_pu = serve_cfg.stream_pus[0] if serve_cfg.stream_pus else serve_cfg.stream_pu
+        if stream_pu is not None:
+            t0 = time.perf_counter()
+            self.streaming_plan = plan_model_streaming(
+                cfg, stream_pu, batch_tokens=serve_cfg.max_batch,
+                search=serve_cfg.plan_search,
+            )
+            self.plan_s = time.perf_counter() - t0
         # decode blocks as CUDA graphs on the card, one per block length
         self.cuda_graphs = self.device.type == "cuda" and not eager
         self._graphs: Dict[int, Any] = {}
@@ -487,11 +526,16 @@ class ServingEngine:
         }
         for b, times in sorted(self.prefill_bucket_s.items()):
             out[f"prefill_s_bucket{b}"] = float(np.mean(times))
+        if self.streaming_plan is not None:
+            out.update(
+                {f"stream_{k}": v for k, v in self.streaming_plan.summary().items()}
+            )
+            out["plan_time_s"] = self.plan_s
         return out
 
 
 # -------------------------------------------------------------------------
-# cache scatter
+# cache scatter + streaming-plan construction
 # -------------------------------------------------------------------------
 
 
@@ -515,3 +559,132 @@ def scatter_cache_lanes(batched_cache, group_cache, slots: torch.Tensor):
         patch[:, :, :s] = one[:, :n, :s].to(full.dtype)
         full.index_copy_(1, idx, patch)
     return batched_cache
+
+
+def model_gemms(cfg: ModelConfig, batch_tokens: int) -> List[Tuple[str, int, int, int]]:
+    """(name, N, M, P) for every weight GEMM of one decode round, in
+    inference order -- the schedulable tile sequence of the paper (SS III)
+    applied to an LM.  P = tokens per round (the decode batch).
+    """
+    d, f = cfg.d_model, cfg.d_ff
+    hd = cfg.head_dim
+    gemms: List[Tuple[str, int, int, int]] = []
+    p = batch_tokens
+    for layer in range(cfg.n_layers):
+        pre = f"L{layer}"
+        if cfg.family not in ("ssm",):
+            gemms.append((f"{pre}/q", cfg.n_heads * hd, d, p))
+            gemms.append((f"{pre}/k", cfg.n_kv_heads * hd, d, p))
+            gemms.append((f"{pre}/v", cfg.n_kv_heads * hd, d, p))
+            gemms.append((f"{pre}/o", d, cfg.n_heads * hd, p))
+        if cfg.family in ("ssm", "hybrid"):
+            din = cfg.d_inner
+            ns, nh = cfg.ssm_state, cfg.ssm_heads
+            gemms.append((f"{pre}/ssm_in", 2 * din + 2 * ns + nh, d, p))
+            gemms.append((f"{pre}/ssm_out", d, din, p))
+        if cfg.is_moe:
+            # only routed-to experts need residency: top_k of n_experts
+            for e in range(cfg.top_k):
+                gemms.append((f"{pre}/expert{e}/up", f, d, p))
+                gemms.append((f"{pre}/expert{e}/gate", f, d, p))
+                gemms.append((f"{pre}/expert{e}/down", d, f, p))
+        elif cfg.d_ff > 0 and cfg.family != "ssm":
+            n_mats = 3 if cfg.mlp == "swiglu" else 2
+            gemms.append((f"{pre}/mlp_up", f * (n_mats - 1), d, p))
+            gemms.append((f"{pre}/mlp_down", d, f, p))
+    gemms.append(("unembed", cfg.vocab, d, p))
+    return gemms
+
+
+def plan_model_streaming(
+    cfg: ModelConfig,
+    pu: Optional[PUConfig] = None,
+    batch_tokens: int = 8,
+    search: Optional[SearchConfig] = None,
+) -> StreamingPlan:
+    """Two-phase streaming plan for one decode round of ``cfg``.
+
+    Layer-level granularity (not R_SA rows): at this scale a schedulable
+    tile is one weight matrix; the scheduler math is identical.  ``pu``
+    defaults to :func:`~repro_torch.core.pu.h100_host_offload_config`
+    (the reference defaults to its TPU host-offload profile).
+    """
+    pu = pu or h100_host_offload_config()
+    tiles = [
+        WeightTile(name=name, layer_index=i, n=n, m=m, p=p)
+        for i, (name, n, m, p) in enumerate(model_gemms(cfg, batch_tokens))
+    ]
+    return plan_streaming(tiles, pu, search=search)
+
+
+def _gemm_layer(name: str, n_layers: int) -> int:
+    """Model-layer index of a ``model_gemms`` entry (``L{i}/...``);
+    layer-less tails (unembed) count as past the last layer."""
+    if name.startswith("L"):
+        head = name.split("/", 1)[0]
+        try:
+            return int(head[1:])
+        except ValueError:
+            pass
+    return n_layers
+
+
+def attach_decode_ranges(
+    cfg: ModelConfig,
+    gemms: Sequence[Tuple[str, int, int, int]],
+    pplan: PartitionedPlan,
+) -> PartitionedPlan:
+    """Derive each stage's *model-layer* decode range from its GEMM range.
+
+    A model layer belongs to the stage that owns its first GEMM; the
+    resulting boundaries are snapped to the family's allowed slice
+    points (``ModelAPI.decode_slice_points``) and kept monotone, so the
+    ranges tile ``[0, n_layers)`` exactly.  Snapping is
+    non-empty-preserving (:func:`repro_torch.plan.partition.
+    snap_boundaries_nonempty`): whenever the slice grid has at least K-1
+    interior points, every stage owns >= 1 layer.  Only when K exceeds
+    what the grid can host does a stage go empty and pass hidden states
+    through untouched.  Families the port does not serve yet raise in
+    ``get_api``."""
+    api = model_api.get_api(cfg)
+    pts = sorted(api.decode_slice_points(cfg))
+    L = cfg.n_layers
+    first_gemm: Dict[int, int] = {}
+    for gi, (name, *_rest) in enumerate(gemms):
+        first_gemm.setdefault(_gemm_layer(name, L), gi)
+    bounds = [0]
+    for st in pplan.stages[1:]:
+        gs = st.layer_start            # gemm-sequence index
+        bounds.append(
+            sum(1 for l in range(L) if first_gemm.get(l, 1 << 60) < gs)
+        )
+    bounds.append(L)
+    snapped = [0] + snap_boundaries_nonempty(bounds[1:-1], pts, L) + [L]
+    stages = tuple(
+        dataclasses.replace(
+            s,
+            decode_layer_start=snapped[k],
+            decode_layer_stop=snapped[k + 1],
+        )
+        for k, s in enumerate(pplan.stages)
+    )
+    return PartitionedPlan(stages=stages)
+
+
+def plan_partitioned_streaming(
+    cfg: ModelConfig,
+    pus: Sequence[PUConfig],
+    batch_tokens: int = 8,
+    search: Optional[SearchConfig] = None,
+) -> PartitionedPlan:
+    """Split one decode round's GEMM sequence across several PU profiles.
+
+    Contiguous GEMM ranges are balanced on each profile's exec-time model
+    and each stage gets its own two-phase schedule (capacity + load
+    channel per PU).  ``search`` selects each stage's schedule-search
+    strategy.  Each stage also carries the model-layer decode range
+    (:func:`attach_decode_ranges`) that staged decode (step 11) will run.
+    """
+    gemms = model_gemms(cfg, batch_tokens)
+    pplan = partition_gemms(gemms, list(pus), search=search)
+    return attach_decode_ranges(cfg, gemms, pplan)
