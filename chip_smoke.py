@@ -82,6 +82,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    copy, no GEMM), a profile of one streamed run (device busy; the
    copies' device time and rate; the GEMMs'), and the plan's stall
    reduction and utilization.
+2f. ``[pipeline] resnet``: the 54 calls of ``[stream] resnet`` split into
+   two stages over PU_1x and PU_2x (``resnet_streaming.partition_calls``,
+   the simulator's per-layer latency), 4 images (numpy seeds 0-3) run
+   through ``StagePipelineExecutor`` as 4 microbatches
+   (``resnet_streaming.stream_partitioned``): each stage streams its tiles
+   from pinned host memory into its own arena of its profile's capacity on
+   its own copy stream, its GEMMs on its own stream through ``int8_gemm``.
+   A first run, then the timed one with launch counts zeroed just before:
+   every call of every image equal to its resident run bit for bit, each
+   stage's peak residency within its capacity, each stage's fetches in its
+   plan's issue order every frame, ``int8_gemm`` launches = tiles x 4;
+   the wall time, the measured and predicted bubble, the stages' highest
+   overlap.
+2g. ``[fleet]``: ``FleetSim(pipelines=[("k2", simulate_partitioned([PU_1X,
+   PU_2X], resnet_gemm_layers(50)), 1)]).execute_pipelines(8)`` (host
+   side; the CPU tests hold it to the JAX package's).
 3. Model step: full-width olmo-1b prefill + one decode step with and
    without the kernels; logits finite and within ``LOGIT_ATOL``.
 4. Serve phase (``[serve]``, ``[graph] serve``): ``repro_torch.launch.serve``'s
@@ -105,6 +121,25 @@ Phases, in order; any failure raises and the script exits non-zero:
 4b. ``[plan] paper``: ``repro_torch.examples.resnet_paper --variant 50
    --plan-only`` (steps 3-4: the two-phase schedule against PU_2x's and
    PU_1x's URAM, and the simulated Table I row; host-side numpy).
+4c. ``[multi-pu] serve``: the serve phase's kernel run with ``--multi-pu
+   2`` (one decode round's GEMMs split over two copies of the H100
+   host-offload profile, every round through the stage pipeline, each
+   stage running its own layer slice with the decode kernels): (a) the
+   serial schedule, ``--microbatches 1``, eager (stage threads on their
+   own streams): its greedy streams equal the single-PU kernel run's; (b)
+   the default, M auto-tuned on the executed bubble, the lane-group blocks
+   coalesced on the engine's thread and replayed as CUDA graphs: no
+   capture after warmup, the split-K counters zero after the replays, and
+   its logits held teacher-forced to the single-PU kernel path's within
+   ``LOGIT_ATOL`` (an eager staged run fed the single-PU run's tokens
+   against an eager single-PU run fed the same), with the count of
+   streams that are equal; then ``execute_partition`` (the partition
+   through the stage-parallel runtime with functional tiles); (c) with
+   two or more cards, the stages on their own devices (the threaded
+   executor); with one, a line that says the stages share it.  Tokens/s,
+   the round time, ``partition_*`` and ``stage_decode*`` stats, the tuned
+   M and queue depth, and each run's launches (16 a layer slice a lane
+   group a round).
 5. Teacher-forced check: both paths serve the requests again (eager,
    untimed),
    keeping every round's logits; the kernel run is fed the composed
@@ -158,6 +193,8 @@ TEMP_ARGV = ["--temperature", "0.8", "--requests", "8", "--max-new", "32"]
 AIMC_SERVE_ARGV = ["--arch", "olmo-1b", "--requests", "4", "--prompt-len", "128",
                    "--max-new", "16", "--max-batch", "4", "--seed", "0", "--decode-kernels"]
 AIMC_ROUNDS = 8             # ResNet-50 NIU rounds (refresh + captured forward)
+PIPELINE_IMAGES = 4         # [pipeline] resnet: images, one microbatch each
+MULTI_PU = ["--multi-pu", "2"]   # [multi-pu] serve: two stages
 AIMC_REFRESHES = 5          # timed LM NIU refreshes; the median is kept
 SOURCES = {
     "fused_qkv": "src/repro_torch/kernels/csrc/decode.cu",
@@ -1086,6 +1123,175 @@ def stream_serve_phase(torch, runs):
     del engine
 
 
+def multi_pu_report(want, label, engine, st, launches, captures):
+    """Print a staged run's numbers and check its streams, clock and
+    launches (16 a layer, a lane group, a round); returns (streams, how
+    many equal ``want``)."""
+    streams = {r.uid: r.out_tokens for r in engine.completed}
+    keys = {k: v for k, v in st.items() if k.startswith(("partition_", "stage"))}
+    same = sum(streams[u] == s for u, s in want.items())
+    m = engine._staged.n_groups
+    print(f"[multi-pu] serve {label}: tokens_per_s={st['tokens_per_s']} mean_decode_round_s="
+          f"{st['mean_decode_round_s']} decode_rounds={st['decode_rounds']} M={m} queue_depth="
+          f"{engine._staged.queue_depth} coalesced={engine._staged.coalesce} graphs captured at "
+          f"warmup {captures}, after 0; launches {launches}; greedy streams equal to the "
+          f"single-PU kernel run's: {same}/{REQUESTS}; {keys}", flush=True)
+    assert st["completed"] == REQUESTS and st["stage_decode_clock_ok"] == 1.0, st
+    assert all(len(s) == MAX_NEW and all(0 <= t < VOCAB for t in s) for s in streams.values())
+    assert all(n == LAYERS * m * engine.decode_rounds for n in launches.values()), launches
+    return streams, same
+
+
+def multi_pu_serve_phase(torch, runs):
+    """``[multi-pu] serve``: olmo-1b at full width through two stages,
+    serial and eager, then auto-tuned and captured, then (with two or more
+    cards) on per-stage devices."""
+    from repro_torch.launch import serve
+
+    want = runs["kernels"]["streams"]
+    # (a) the serial reference schedule, eager: the single-PU bits
+    engine = serve_engine(serve, True, True, MULTI_PU + ["--microbatches", "1"])
+    st, launches, captures = served(torch, engine)
+    streams, same = multi_pu_report(want, "(a) --microbatches 1, eager", engine, st, launches,
+                                    captures)
+    assert engine._staged.n_groups == 1 and captures == 0
+    assert streams == want, "the serial staged schedule changed the greedy streams"
+    del engine
+    torch.cuda.empty_cache()
+    # (b) auto-tuned M, coalesced blocks replayed as CUDA graphs
+    engine = serve_engine(serve, True, False, MULTI_PU)
+    st, launches, captures = served(torch, engine)
+    streams, same = multi_pu_report(want, "(b) M auto-tuned, captured", engine, st, launches,
+                                    captures)
+    m = engine._staged.n_groups
+    assert engine._staged.coalesce and st["stage_decode_autotuned"] == 1.0
+    assert captures == (len(engine._staged.graphs) if m > 1 else 0), captures
+    scratch_left_zero(torch, engine._staged.graphs, "the multi-pu run's replays")
+    tune = engine.staged_tune
+    print(f"[multi-pu] serve (b) tuner trials {tune.trials} depth trials {tune.depth_trials}",
+          flush=True)
+    engine.execute_partition()
+    pst = {k: v for k, v in engine.stats().items() if k.startswith("partition_")}
+    print(f"[multi-pu] execute_partition (functional tiles, M auto-tuned): {pst}", flush=True)
+    del engine
+    torch.cuda.empty_cache()
+    # the same engine run eagerly: the captured blocks must give its bits
+    engine = serve_engine(serve, True, True, MULTI_PU)
+    st, launches, _ = served(torch, engine)
+    eager, _ = multi_pu_report(want, "(b) the same, eager", engine, st, launches, 0)
+    assert engine._staged.n_groups == m and engine._staged.coalesce and not engine._staged.graphs
+    print(f"[multi-pu] serve (b): captured greedy streams "
+          f"{'equal' if eager == streams else 'DIFFER from'} the eager run's", flush=True)
+    assert eager == streams, "the captured staged blocks served other tokens than the eager ones"
+    del engine
+    torch.cuda.empty_cache()
+    _, want_rounds, _ = logged_run(torch, kernels=True, feed=want)
+    staged_forced(torch, "(b)", streams, m, want, want_rounds)
+    per_stage_devices_phase(torch, want, want_rounds)
+
+
+def per_stage_devices_phase(torch, want, want_rounds):
+    """``[multi-pu] serve`` (c): with the visible cards split two ways, a
+    device per stage and the threaded executor; its logits held
+    teacher-forced to the single-PU kernel path's (``want``,
+    ``want_rounds``: its streams and its rounds fed its own streams)."""
+    from repro_torch.launch import serve
+
+    n = torch.cuda.device_count()
+    if n < 2 or n % 2:
+        print(f"[multi-pu] serve (c): {n} card(s) visible, which do not split two ways, so the "
+              f"stages share them (stage_devices shared); per-stage devices not run", flush=True)
+        return
+    engine = serve_engine(serve, True, False, MULTI_PU)
+    assert not engine.stage_devices_shared and not engine._staged.coalesce
+    assert len(set(engine._staged.devices)) == 2, engine._staged.devices
+    st, launches, captures = served(torch, engine)
+    streams, _ = multi_pu_report(want, f"(c) per-stage devices {engine._staged.devices}", engine,
+                                 st, launches, captures)
+    m = engine._staged.n_groups
+    del engine
+    staged_forced(torch, "(c)", streams, m, want, want_rounds)
+
+
+def staged_forced(torch, label, streams, m, want, want_rounds):
+    """Hold a staged engine's logits (``--multi-pu 2``, M = ``m``) to the
+    single-PU kernel path's at every step of every request, teacher-forced
+    on ``want``, and tie the timed staged run's ``streams`` to them."""
+    got_streams, got_rounds, m_forced = logged_run(torch, True, feed=want, extra=MULTI_PU)
+    assert m_forced == m, (m_forced, m)
+    diffs, flips = compare_rounds(torch, want_rounds, got_rounds)
+    d = sorted(diffs.values())
+    same = sum(streams[u] == s for u, s in want.items())
+    print(f"[multi-pu] {label} teacher-forced, staged M={m} vs single-PU, kernels on both, on "
+          f"the same tokens: {len(d)} (request, step) logit vectors, max |diff| {d[-1]}, median "
+          f"{statistics.median(d)}, argmax differs at {len(flips)} steps (limit {LOGIT_ATOL}); "
+          f"greedy streams equal: {same}/{REQUESTS}", flush=True)
+    assert len(d) == REQUESTS * (MAX_NEW - 1) and d[-1] <= LOGIT_ATOL, d[-1]
+    tie_streams(streams, want, got_streams)
+    print(f"[multi-pu] {label}: the timed run's tokens up to each request's first divergence "
+          f"from the single-PU streams are the teacher-forced run's", flush=True)
+
+
+def pipeline_resnet_phase(torch, params):
+    """``[pipeline] resnet``: 4 images through the two-stage pipeline over
+    PU_1x and PU_2x, every tile streamed into its stage's arena and run
+    through ``int8_gemm``, held bit for bit against the resident calls."""
+    import numpy as np
+
+    from repro_torch.core.pu import PU_1X, PU_2X
+    from repro_torch.kernels import common
+    from repro_torch.runtime import resnet_streaming as rs
+
+    pus = [PU_1X, PU_2X]
+    calls = []
+    for m in range(PIPELINE_IMAGES):
+        img = torch.from_numpy(np.random.default_rng(m).integers(
+            -100, 100, (IMAGE, IMAGE, 3), dtype=np.int8)).cuda()
+        calls.append(rs.forward_calls(RESNET, params, img))
+    plan = rs.partition_calls(calls[0], pus)
+    tiles = sum(s.plan.n for s in plan.stages)
+    for attempt in ("first", "timed"):
+        common.reset_launches()                 # count this run only
+        run = rs.stream_partitioned(calls, pus)
+        launches = common.launch_counts()
+        rep = run.report
+        same = sum(torch.equal(o, c.out) for per, outs in zip(calls, run.outputs)
+                   for c, o in zip(per, outs))
+        orders = [rep.stages[k].fetch_orders == [[s.tile_names[i] for i in s.plan.issue_order()]]
+                  * PIPELINE_IMAGES for k, s in enumerate(run.plan.stages)]
+        print(f"[pipeline] resnet {attempt} run: {same}/{PIPELINE_IMAGES * len(calls[0])} calls "
+              f"equal to the resident calls bit for bit; launches {launches}; stages "
+              f"{[(s.pu.name, s.layer_start, s.layer_stop, s.plan.n) for s in run.plan.stages]} "
+              f"(pu, first call, end, tiles); peak residency {[t.peak_resident_bytes for t in rep.stages]}"
+              f" B, arena high water {run.arena_high_water} B, of "
+              f"{[s.pu.fast_mem_bytes for s in run.plan.stages]} B; fetches in each stage's "
+              f"issue order every image: {orders}", flush=True)
+        assert same == PIPELINE_IMAGES * len(calls[0])
+        assert all(orders) and rep.outputs == list(range(PIPELINE_IMAGES))
+        for t, hw, s in zip(rep.stages, run.arena_high_water, run.plan.stages):
+            assert t.peak_resident_bytes <= s.pu.fast_mem_bytes and hw <= s.pu.fast_mem_bytes
+        assert launches["int8_gemm"] == tiles * PIPELINE_IMAGES and launches["im2col"] == 0, launches
+    print(f"[pipeline] resnet: {PIPELINE_IMAGES} images x {tiles} tiles, {run.bytes_streamed} B "
+          f"streamed, wall {run.wall_s * 1e3} ms ({run.wall_s * 1e3 / PIPELINE_IMAGES} ms an "
+          f"image); bubble measured {rep.bubble_measured} (virtual clock) vs predicted "
+          f"{rep.bubble_predicted}; max_concurrent_stages {rep.max_concurrent_stages}; virtual "
+          f"makespan {rep.makespan_s} s = {rep.measured_fps} FPS vs the plan's {rep.predicted_fps} "
+          f"FPS at M={PIPELINE_IMAGES} (steady {rep.steady_fps})", flush=True)
+
+
+def fleet_phase():
+    """``[fleet]``: the executed mode of the simulator's fleet (host side)."""
+    from repro_torch.core import simulator as sim
+    from repro_torch.core.pu import PU_1X, PU_2X
+
+    fleet = sim.FleetSim(pipelines=[
+        ("k2", sim.simulate_partitioned([PU_1X, PU_2X], sim.resnet_gemm_layers(RESNET)), 1)])
+    rec = fleet.execute_pipelines(8)
+    print(f"[fleet] FleetSim k2 (ResNet-{RESNET} over PU_1x + PU_2x), execute_pipelines(8): "
+          f"{rec['k2']}", flush=True)
+    assert rec["k2"]["measured_fps"] > 0 and 0.0 <= rec["k2"]["bubble_measured"] < 1.0
+
+
 def plan_paper_phase():
     """``[plan] paper``: steps 3-4 of the ResNet example (host-side)."""
     from repro_torch.examples import resnet_paper
@@ -1095,38 +1301,87 @@ def plan_paper_phase():
     resnet_paper.main(["--variant", str(RESNET), "--plan-only"])
 
 
-def logged_run(torch, kernels: bool, feed=None):
-    """An untimed run of the serve phase's requests that keeps every
-    round's logits on the card.  With ``feed`` (uid -> stream) each
-    active lane is fed that stream's tokens in place of its own samples,
-    so the run scores exactly the prefixes ``feed`` scored (teacher
-    forcing); the run's own samples still land in its streams."""
+def logged_run(torch, kernels: bool, feed=None, extra=()):
+    """An untimed, eager run of the serve phase's requests (``extra``
+    launcher arguments after them) that keeps every round's logits on the
+    card; returns (streams, rounds, M).  With ``feed`` (uid -> stream)
+    each active lane is fed that stream's tokens in place of its own
+    samples, so the run scores exactly the prefixes ``feed`` scored
+    (teacher forcing); the run's own samples still land in its streams.
+    The single-PU hook wraps ``decode_step`` and feeds its input; the
+    staged path calls no ``decode_step``, so there the hook wraps the
+    post-decode transition, which sees each lane group's logits (the
+    groups are views of the engine's state, so a group's first lane is
+    its offset there) and feeds the group's next input."""
     from repro_torch.launch import serve
 
-    engine = serve_engine(serve, kernels, eager=True)       # the hook runs every round
-    inner, state, lanes = engine.api.decode_step, engine._state, engine._lanes
+    engine = serve_engine(serve, kernels, eager=True, extra=extra)     # the hook runs every round
+    state, lanes, B = engine._state, engine._lanes, len(engine._slots)
     table = torch.zeros_like(state["out_buf"])
-    loaded = [None] * len(engine._slots)
-    rounds = []
+    loaded = [None] * B
+    rounds, pending = [], {}
+
+    def load_feed():
+        uids = [None if r is None else r.uid for r in engine._slots]
+        for lane, uid in enumerate(uids):
+            if feed is not None and uid is not None and loaded[lane] != uid:
+                table[lane, :MAX_NEW] = torch.tensor(feed[uid], dtype=torch.int32)
+                loaded[lane] = uid
+        return uids
+
+    def fed(st, rows, tokens):
+        """``tokens`` (n, 1), each active lane's the fed stream's at its position."""
+        if feed is None:
+            return tokens
+        col = (st["out_len"] - 1).clamp(min=0).long()
+        return torch.where(st["active"][:, None], table[rows, col][:, None], tokens)
 
     def decode_step(cfg, params, cache, tokens, pos):
-        uids = [None if r is None else r.uid for r in engine._slots]
-        if feed is not None:
-            for lane, uid in enumerate(uids):
-                if uid is not None and loaded[lane] != uid:
-                    table[lane, :MAX_NEW] = torch.tensor(feed[uid], dtype=torch.int32)
-                    loaded[lane] = uid
-            col = (state["out_len"] - 1).clamp(min=0).long()
-            tokens = torch.where(state["active"][:, None], table[lanes, col][:, None], tokens)
-        logits, cache = inner(cfg, params, cache, tokens, pos)
+        uids = load_feed()
+        logits, cache = inner(cfg, params, cache, fed(state, lanes, tokens), pos)
         rounds.append((uids, state["active"].clone(), state["out_len"].clone(), logits))
         return logits, cache
 
-    engine.api = dataclasses.replace(engine.api, decode_step=decode_step)
+    def postdecode(st, logits):
+        n = st["active"].shape[0]
+        g0 = st["active"].data_ptr() - state["active"].data_ptr()
+        if not pending:
+            pending.update(uids=load_feed(), seen=0, active=state["active"].clone(),
+                           out_len=state["out_len"].clone(),
+                           logits=torch.empty((B, logits.shape[1]), dtype=logits.dtype,
+                                              device=logits.device))
+        pending["logits"][g0:g0 + n] = logits
+        pending["seen"] += n
+        inner(st, logits)
+        st["tokens"].copy_(fed(st, lanes[g0:g0 + n], st["tokens"]))
+        if pending["seen"] == B:
+            rounds.append((pending["uids"], pending["active"], pending["out_len"],
+                           pending["logits"]))
+            pending.clear()
+
+    if engine._staged is None:
+        inner = engine.api.decode_step
+        engine.api = dataclasses.replace(engine.api, decode_step=decode_step)
+    else:
+        assert engine._staged.n_groups > 1, "M = 1 rounds run no lane-group transition"
+        inner, engine._staged._postdecode = engine._staged._postdecode, postdecode
     engine.run_until_drained()
+    assert not pending, "a round's lane groups did not all arrive"
     streams = {r.uid: r.out_tokens for r in engine.completed}
+    m = 1 if engine._staged is None else engine._staged.n_groups
     del engine
-    return streams, rounds
+    return streams, rounds, m
+
+
+def tie_streams(served, want, checked):
+    """A timed run that served ``served`` scored ``want``'s prefix up to
+    its first divergence from it, so up to and including that token its
+    tokens must be those of the run teacher-forced on ``want``
+    (``checked``), whose logits were held."""
+    for uid, w in want.items():
+        s = served[uid]
+        t = next((i for i, (a, b) in enumerate(zip(s, w)) if a != b), len(w) - 1)
+        assert s[: t + 1] == checked[uid][: t + 1], f"request {uid}: served tokens unchecked"
 
 
 def compare_rounds(torch, want_rounds, got_rounds):
@@ -1154,9 +1409,9 @@ def forced_phase(torch, runs):
     """Hold the kernel path's logits to the composed path's at every step
     of every request, on the same tokens, and tie the timed kernel run's
     streams to those checked logits."""
-    want_streams, want_rounds = logged_run(torch, kernels=False)
+    want_streams, want_rounds, _ = logged_run(torch, kernels=False)
     assert want_streams == runs["composed"]["streams"], "the composed path is not deterministic"
-    got_streams, got_rounds = logged_run(torch, kernels=True, feed=want_streams)
+    got_streams, got_rounds, _ = logged_run(torch, kernels=True, feed=want_streams)
     diffs, flips = compare_rounds(torch, want_rounds, got_rounds)
     assert len(diffs) == REQUESTS * (MAX_NEW - 1), len(diffs)
     d = sorted(diffs.values())
@@ -1171,10 +1426,7 @@ def forced_phase(torch, runs):
     assert d[-1] <= LOGIT_ATOL, f"logits differ by {d[-1]} > {LOGIT_ATOL}"
     # the timed kernel run scored the composed prefix up to its first
     # divergence, so up to and including it its tokens are the checked ones
-    for uid, want in runs["composed"]["streams"].items():
-        served = runs["kernels"]["streams"][uid]
-        t = next((i for i, (a, b) in enumerate(zip(served, want)) if a != b), len(want) - 1)
-        assert served[: t + 1] == got_streams[uid][: t + 1], f"request {uid}: served tokens unchecked"
+    tie_streams(runs["kernels"]["streams"], runs["composed"]["streams"], got_streams)
     return want_streams, want_rounds
 
 
@@ -1198,7 +1450,7 @@ def fault_phase(torch, want_streams, want_rounds):
                              "decode_attention")):
         setattr(dispatch, patch, fn)
         try:
-            _, rounds = logged_run(torch, kernels=True, feed=want_streams)
+            _, rounds, _ = logged_run(torch, kernels=True, feed=want_streams)
         finally:
             dispatch.decode_qkv, dispatch.decode_attention = qkv, attn
         diffs, flips = compare_rounds(torch, want_rounds, rounds)
@@ -1549,12 +1801,16 @@ def main() -> int:
     graph = graph_resnet_phase(torch, params, img, resnet)
     aimc = aimc_resnet_phase(torch, params, img)
     stream_resnet_phase(torch, params, img)
+    pipeline_resnet_phase(torch, params)
+    fleet_phase()
     del params, img, timer, resnet
     torch.cuda.empty_cache()
     model_step_phase(torch)
     torch.cuda.empty_cache()
     runs = serve_phase(torch, rates)
     stream_serve_phase(torch, runs)
+    multi_pu_serve_phase(torch, runs)
+    torch.cuda.empty_cache()
     plan_paper_phase()
     aimc_serve_phase(torch)
     torch.cuda.empty_cache()

@@ -11,9 +11,11 @@ was allowed.  The reference's ``TraceCounter.jit`` has no counterpart:
 the engine bumps the counter where it captures.
 
 The lock-order recorder is the reference's, copied: it wraps
-``StageStreamCore._cond`` (via :func:`instrument_condition`) and records
-every pairwise acquisition order into a process-wide edge registry;
-acquiring A-then-B after B-then-A was seen anywhere is reported by
+``StageStreamCore._cond`` (via :func:`instrument_condition`) and
+``StagePipelineExecutor._active_lock`` (via :func:`instrument_lock`) and
+records every pairwise acquisition order into a process-wide edge
+registry; acquiring A-then-B after B-then-A was seen anywhere, or
+reaching a :func:`require_held` check without the lock, is reported by
 :func:`lock_violations`.  It gates on ``REPRO_SANITIZE=1``
 (:func:`enabled`): with the flag unset the factories return plain
 ``threading`` objects.  The reference's transfer guard is not here
@@ -105,7 +107,7 @@ def retrace_guard(
 
 @dataclasses.dataclass(frozen=True)
 class LockOrderViolation:
-    kind: str      # "order": an inconsistent pairwise order
+    kind: str      # "order": an inconsistent pairwise order; "unguarded"
     first: str     # lock held / expected
     second: str    # lock acquired out of order
     site: str      # file:line of the offending acquisition
@@ -126,7 +128,8 @@ def _held() -> List[str]:
 
 
 def _call_site() -> str:
-    # the frame that called acquire(): two sanitize frames sit above it
+    # the frame that called acquire()/require_held(): two sanitize
+    # frames sit above it on the stack
     frames = traceback.extract_stack(limit=4)
     for fr in reversed(frames):
         if "sanitize" not in (fr.filename or ""):
@@ -195,6 +198,9 @@ class _InstrumentedLock:
         self._inner.release()
         _note_released(self.name)
 
+    def held_by_me(self) -> bool:
+        return self.name in _held()
+
     def __enter__(self):
         self.acquire()
         return self
@@ -223,6 +229,15 @@ class _InstrumentedCondition(_InstrumentedLock):
         self._inner.notify_all()
 
 
+def instrument_lock(name: str, lock=None, active: Optional[bool] = None):
+    """A (possibly instrumented) lock: plain ``threading.Lock`` when
+    the sanitizers are off, recorder-wrapped otherwise."""
+    inner = lock if lock is not None else threading.Lock()
+    if not (enabled() if active is None else active):
+        return inner
+    return _InstrumentedLock(inner, name)
+
+
 def instrument_condition(name: str, cond=None, active: Optional[bool] = None):
     """A (possibly instrumented) condition variable: a plain
     ``threading.Condition`` when the sanitizers are off (or ``active`` is
@@ -231,3 +246,22 @@ def instrument_condition(name: str, cond=None, active: Optional[bool] = None):
     if not (enabled() if active is None else active):
         return inner
     return _InstrumentedCondition(inner, name)
+
+
+def require_held(lock, site: str = "") -> None:
+    """Record an ``unguarded`` violation when the calling thread does
+    not hold ``lock``.  No-op for uninstrumented locks (sanitizers
+    off), so call sites can assert lock discipline unconditionally."""
+    if not isinstance(lock, _InstrumentedLock):
+        return
+    if lock.held_by_me():
+        return
+    with _registry_lock:
+        _violations.append(
+            LockOrderViolation(
+                kind="unguarded",
+                first=lock.name,
+                second="",
+                site=site or _call_site(),
+            )
+        )

@@ -305,9 +305,23 @@ class FleetSim:
         throughput/bubble is reported next to the analytic prediction.
         ``measured_vs_analytic`` below 1.0 is the pipeline-fill cost the
         additive model ignores; a large gap flags a runtime/cost-model
-        divergence.  The port raises until that runtime is ported.
+        divergence.
         """
-        raise NotImplementedError(
-            "the stage-parallel runtime (runtime/pipeline_exec.py) is not "
-            "ported yet (ROADMAP queue 1, step 11)"
-        )
+        from repro_torch.runtime.pipeline_exec import execute_partitioned_plan
+
+        out = {}
+        for name, pplan, count in self.pipelines:
+            rep = execute_partitioned_plan(
+                pplan, n_microbatches=n_microbatches
+            )
+            out[name] = {
+                "count": count,
+                "analytic_fps": pplan.fps,
+                "predicted_fps": rep.predicted_fps,
+                "measured_fps": rep.measured_fps,
+                "measured_vs_analytic": rep.measured_fps / pplan.fps,
+                "bubble_measured": rep.bubble_measured,
+                "bubble_predicted": rep.bubble_predicted,
+                "wall_s": rep.wall_s,
+            }
+        return out

@@ -55,7 +55,12 @@ def device_int(v: Union[int, torch.Tensor], name: str, dev: torch.device) -> tor
             if dev.type == "cuda" and torch.cuda.is_current_stream_capturing():
                 raise RuntimeError(f"{name}={v}: no static scalar yet while a CUDA graph is "
                                    f"captured; run the call once before capturing it")
-            t = _SCALARS[key] = torch.full((), int(v), dtype=torch.int32, device=dev)
+            t = torch.full((), int(v), dtype=torch.int32, device=dev)
+            if dev.type == "cuda":
+                # filled on this thread's stream, read later from any
+                # stream (the stage threads each launch on their own)
+                torch.cuda.current_stream(dev).synchronize()
+            _SCALARS[key] = t
         return t
     if v.device != dev or v.numel() != 1 or v.is_floating_point():
         raise ValueError(f"{name} must be one integer on {dev}, got {v.dtype} "

@@ -1,7 +1,8 @@
 """Serving launcher of the port: batched requests against olmo-1b.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b \
-        [--smoke] [--decode-kernels] [--aimc] [--stream] [--device cpu]
+        [--smoke] [--decode-kernels] [--aimc] [--stream] [--multi-pu K] \
+        [--device cpu]
 
 Runs on the CUDA card unless ``--device cpu`` is given; without a card
 and without that flag it fails.  Weights are made from ``--seed`` by the
@@ -15,8 +16,17 @@ two-phase scheduler under the H100 host-offload profile
 (``core.pu.h100_host_offload_config``) and adds the plan's summary to the
 stats (``stream_*``, and ``plan_time_s``); ``--plan-search beam|anneal``
 searches the schedule instead (seeded by ``--plan-search-seed``).
-Planning changes nothing that is served.  ``--multi-pu`` waits for staged
-decode (ROADMAP queue 1, step 11).  Prints a JSON stats blob.
+Planning changes nothing that is served.  ``--multi-pu K`` splits one
+decode round across K copies of the H100 host-offload profile (the
+reference alternates its TPU profiles) and serves through true per-stage
+decode: every round runs each stage's model-layer slice through the stage
+pipeline (``runtime.stage_decode``), ``--microbatches M`` lane groups at
+a time (0, the default, tunes M on the executed bubble against
+``--target-bubble``; 1 is the serial reference); after the requests
+drain, the partition also runs through the stage-parallel runtime with
+functional tiles (``execute_partition``), and the stats gain
+``partition_*`` and ``stage_decode*`` keys.  ``--no-stage-decode`` keeps
+the single-PU decode loop.  Prints a JSON stats blob.
 """
 from __future__ import annotations
 
@@ -62,6 +72,22 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--stream", action="store_true",
                     help="plan host->HBM weight streaming (two-phase "
                          "scheduler, H100 host-offload profile)")
+    ap.add_argument("--multi-pu", type=int, default=0, metavar="K",
+                    help="partition the model across K H100 host-offload "
+                         "profiles and run true per-stage decode; K=1 "
+                         "plans the single-PU streaming path")
+    ap.add_argument("--no-stage-decode", action="store_true",
+                    help="with --multi-pu, keep the single-PU decode loop "
+                         "and only attach the partition analytically")
+    ap.add_argument("--microbatches", type=int, default=0, metavar="M",
+                    help="lane groups of the overlapped staged decode with "
+                         "--multi-pu (and the depth of the executed tile "
+                         "pipeline): 1 = serial reference, 0 (default) "
+                         "auto-tunes M and the handoff queue depth against "
+                         "--target-bubble on the executed bubble")
+    ap.add_argument("--target-bubble", type=float, default=0.10,
+                    help="target fill/drain bubble of the microbatch "
+                         "auto-tuner (default 0.10)")
     ap.add_argument("--plan-search", default="heuristic",
                     choices=["heuristic", "beam", "anneal"],
                     help="schedule-search strategy for the streaming planner")
@@ -99,6 +125,13 @@ def make_engine(args, eager: bool = False) -> ServingEngine:
         decode_kernels=args.decode_kernels,
         aimc=AIMCNoiseModel() if args.aimc else None,
         stream_pu=h100_host_offload_config() if args.stream else None,
+        stream_pus=(
+            [h100_host_offload_config() for _ in range(args.multi_pu)]
+            if args.multi_pu else None
+        ),
+        stage_decode=not args.no_stage_decode,
+        decode_microbatches=args.microbatches,
+        target_bubble=args.target_bubble,
         plan_search=(
             SearchConfig(strategy=args.plan_search, seed=args.plan_search_seed)
             if args.plan_search != "heuristic"
@@ -122,6 +155,11 @@ def main(argv=None) -> int:
         engine.warmup()
     submit_requests(engine, args)
     engine.run_until_drained()
+    if engine.partitioned_plan is not None:
+        # the partition through the stage-parallel runtime: every stage's
+        # tiles in plan issue order, the pipeline's throughput and fill
+        # bubble measured (M = 0 auto-tunes the depth)
+        engine.execute_partition(n_microbatches=args.microbatches or None)
     print(json.dumps(engine.stats(), indent=1, default=float))
     return 0
 

@@ -23,11 +23,21 @@ A tile covers ``R_SA`` output channels (columns of the ``(M, N)`` weight
 view), so each call's streamed outputs, joined along the channels, must
 equal the resident call's bit for bit: every output channel is its own
 int32 sum whatever the split of the reduction.
+
+:func:`stream_partitioned` is the multi-PU sibling of :func:`stream_calls`:
+the calls are split into contiguous stages over several PU profiles
+(``core.simulator.simulate_partitioned``, the paper's per-layer cost
+model) and a batch of images runs through the stage pipeline
+(``runtime.pipeline_exec.StagePipelineExecutor``), one image a
+microbatch.  Each stage streams its own tiles into its own arena on its
+own copy stream, in its plan's issue order, while the other stage works
+on another image.
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
+import threading
 import time
 from typing import Callable, List, Optional, Sequence, Tuple, Union
 
@@ -44,11 +54,14 @@ from repro_torch.core.streaming import (
 )
 from repro_torch.kernels import ops
 from repro_torch.models import resnet
+from repro_torch.plan.partition import PartitionedPlan
+from repro_torch.runtime.pipeline_exec import PipelineReport, StagePipelineExecutor
 
 # the module (the package re-exports its function under the same name)
 kgemm = importlib.import_module("repro_torch.kernels.int8_gemm")
 
 ALIGN = 16      # bytes: the conv mode's operand alignment
+ARENA_WAIT_S = 60.0     # longest a stage's load waits for room in its arena
 
 
 @dataclasses.dataclass(eq=False)
@@ -181,6 +194,11 @@ class TileArena:
         self.free_blocks: List[Tuple[int, int]] = [(0, capacity)]   # (offset, size)
         self.high_water = 0
 
+    def fits(self, nbytes: int) -> bool:
+        """True when ``nbytes`` fit in one free block."""
+        size = -(-nbytes // ALIGN) * ALIGN
+        return any(avail >= size for _, avail in self.free_blocks)
+
     def alloc(self, nbytes: int) -> int:
         size = -(-nbytes // ALIGN) * ALIGN
         for i, (off, avail) in enumerate(self.free_blocks):
@@ -281,4 +299,127 @@ def stream_calls(calls: Sequence[GemmCall], pu: PUConfig) -> StreamRun:
         plan=plan, executor=ex, outputs=joined,
         bytes_streamed=sum(h.numel() for h in host.values()),
         wall_s=wall, arena_high_water=arena.high_water,
+    )
+
+
+def partition_calls(calls: Sequence[GemmCall], pus: Sequence[PUConfig]) -> PartitionedPlan:
+    """The calls split into ``len(pus)`` contiguous stages, balanced on
+    the simulator's per-layer latency under each stage's profile, each
+    stage's R_SA-row tiles planned against its profile's capacity
+    (``simulator.simulate_partitioned``); a stage's tiles are named
+    ``"{call}/t{j}"``, tile j holding output channels from ``j * R_SA``."""
+    layers = [sim.GemmLayer(c.name, c.n, c.m, c.p, residual=c.residual is not None)
+              for c in calls]
+    return sim.simulate_partitioned(list(pus), layers)
+
+
+@dataclasses.dataclass
+class PipelineRun:
+    plan: PartitionedPlan
+    report: PipelineReport
+    outputs: List[List[torch.Tensor]]   # per image, per call: the tiles' outputs joined
+    bytes_streamed: int
+    wall_s: float                       # executor run to the device's last GEMM
+    arena_high_water: List[int]         # per stage
+
+
+def stream_partitioned(
+    calls: Sequence[Sequence[GemmCall]],
+    pus: Sequence[PUConfig],
+    queue_depth: int = 2,
+) -> PipelineRun:
+    """Run a batch of images' GEMM calls (``calls[m]``: image m's
+    :func:`forward_calls`, one microbatch each) through the stage
+    pipeline of :func:`partition_calls` over ``pus``.
+
+    Stage k has an arena of its profile's ``fast_mem_bytes``; ``fetch``
+    (stage k's prefetch worker, in the plan's issue order) copies a
+    tile's weights from pinned host memory into it on stage k's copy
+    stream, and ``run_tile`` (stage k's thread, on its stream) waits for
+    that copy and runs the tile's GEMM on the image's own operands of
+    the call.  A copy waits for the GEMMs the stage retired before it
+    was issued, whose slots it may reuse.  The plan bounds the bytes
+    resident, not their layout: a load whose bytes are free but in
+    pieces waits for the stage's next retired GEMM (and raises after
+    ``ARENA_WAIT_S``).  Every image streams every tile (the executor's
+    tile loop runs once a frame).  An infeasible plan raises."""
+    images = [list(c) for c in calls]
+    first = images[0]
+    plan = partition_calls(first, pus)
+    dev = first[0].w.device
+    cuda = dev.type == "cuda"
+    # stage k's tile i -> (call index, first output channel), and its
+    # weights on the host
+    owner: List[List[Tuple[int, int]]] = []
+    host: List[List[torch.Tensor]] = []
+    for st in plan.stages:
+        o, h = [], []
+        for li, n_tiles in enumerate(st.tiles_per_layer):
+            ci = st.layer_start + li
+            c = first[ci]
+            for j in range(n_tiles):
+                c0 = j * st.pu.r_sa
+                o.append((ci, c0))
+                w = c.w[:, c0:c0 + min(st.pu.r_sa, c.n - c0)].to("cpu").contiguous()
+                h.append(w.pin_memory() if cuda else w)
+        owner.append(o)
+        host.append(h)
+    K = len(plan.stages)
+    arenas = [TileArena(st.pu.fast_mem_bytes, dev) for st in plan.stages]
+    # prefetch worker vs stage thread; the worker waits here while the
+    # arena's free bytes lie in pieces too small for its tile
+    conds = [threading.Condition() for _ in range(K)]
+    copy_streams = [torch.cuda.Stream(dev) if cuda else None for _ in range(K)]
+    released = [torch.cuda.Event() if cuda else None for _ in range(K)]
+    loaded = {}
+    outs: List[List[List[torch.Tensor]]] = [[[] for _ in first] for _ in images]
+
+    def fetch(k, i, name):
+        h = host[k][i]
+        with conds[k]:
+            while not arenas[k].fits(h.numel()):
+                if not conds[k].wait(timeout=ARENA_WAIT_S):
+                    raise RuntimeError(f"stage {k}: {name} found no room in its arena for "
+                                       f"{ARENA_WAIT_S} s (free blocks {arenas[k].free_blocks})")
+            off = arenas[k].alloc(h.numel())
+        dst = arenas[k].buf[off:off + h.numel()].view(h.shape)
+        if cuda:
+            with torch.cuda.stream(copy_streams[k]):
+                copy_streams[k].wait_event(released[k])   # the slots retired GEMMs freed
+                dst.copy_(h, non_blocking=True)
+                loaded[k, i] = torch.cuda.Event()
+                loaded[k, i].record(copy_streams[k])
+        else:
+            dst.copy_(h)
+        return off, dst
+
+    def run_tile(k, i, resident, m):
+        off, w_cols = resident
+        if cuda:
+            torch.cuda.current_stream(dev).wait_event(loaded.pop((k, i)))
+        ci, c0 = owner[k][i]
+        outs[m][ci].append(images[m][ci].run(w_cols, c0))
+        if cuda:
+            released[k].record(torch.cuda.current_stream(dev))
+        with conds[k]:
+            arenas[k].free(off, w_cols.numel())
+            conds[k].notify_all()
+        return m
+
+    ex = StagePipelineExecutor(
+        plan, fetch=fetch, run_tile=run_tile, queue_depth=queue_depth,
+        stage_devices=[dev] * K if cuda else None, record_fetch_orders=True,
+    )
+    if cuda:
+        torch.cuda.synchronize(dev)            # the operands are ready
+    t0 = time.perf_counter()
+    report = ex.run(list(range(len(images))))
+    if cuda:
+        torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    return PipelineRun(
+        plan=plan, report=report,
+        outputs=[[torch.cat(parts, dim=-1) for parts in per] for per in outs],
+        bytes_streamed=len(images) * sum(t.numel() for h in host for t in h),
+        wall_s=wall, arena_high_water=[a.high_water for a in arenas],
     )

@@ -40,9 +40,23 @@ one decode round with the paper's two-phase scheduler
 and reports the plan in ``stats()`` under ``stream_*``; planning changes
 nothing that is served.
 
-Not in this slice (ROADMAP queue 1): the host-sampling path, multi-PU
-staged decode (``stream_pus`` with two or more profiles raises; step 11),
-and CUDA-graph capture of the bucketed prefill (it runs eagerly).
+With ``stream_pus`` (K >= 2) the engine splits one decode round's GEMMs
+across the K profiles (:func:`plan_partitioned_streaming`) and runs
+**true per-stage decode**: each round's hidden state flows through the
+stage pipeline, every stage executing its model-layer slice against its
+own KV-cache slice (``runtime.stage_decode``), with greedy streams equal
+to the single-PU engine's.  The stages share the engine's card unless
+``launch.mesh.stage_devices`` finds one device per stage; on a shared
+device an overlapped block (M > 1 lane groups) runs on the engine's
+thread and, on the card, replays one CUDA graph per block length.  The
+lane groups' decode states are views of the engine's state tensors, so
+splitting and merging them moves nothing.  ``stage_decode=False`` keeps
+the single-PU decode loop with the partition attached analytically, and
+:meth:`ServingEngine.execute_partition` runs the partition through the
+stage-parallel runtime with functional tiles.
+
+Not in this slice (ROADMAP queue 1): the host-sampling path and
+CUDA-graph capture of the bucketed prefill (it runs eagerly).
 """
 from __future__ import annotations
 
@@ -61,6 +75,7 @@ from repro_torch.core.pu import PUConfig, h100_host_offload_config
 from repro_torch.core.streaming import StreamingPlan, WeightTile, plan_streaming
 from repro_torch.kernels import decode as kdecode
 from repro_torch.kernels.common import capture_graph, resolve_device
+from repro_torch.launch.mesh import stage_devices
 from repro_torch.models import api as model_api
 from repro_torch.plan import (
     PartitionedPlan,
@@ -93,12 +108,29 @@ class ServeConfig:
     aimc_refresh_every: int = 1
     # weight streaming (host->HBM level); None disables planning
     stream_pu: Optional[PUConfig] = None
-    # multi-PU partitioned streaming; one profile degenerates to
-    # ``stream_pu``, two or more wait for staged decode (step 11)
+    # multi-PU partitioned streaming: the model's layer sequence is split
+    # across these profiles (contiguous ranges balanced on exec time, one
+    # two-phase schedule per PU); overrides ``stream_pu``, and one profile
+    # degenerates to it
     stream_pus: Optional[List[PUConfig]] = None
-    # schedule-search strategy for the streaming planner (None/heuristic
-    # = the paper's one-shot heuristic; beam/anneal search the schedule)
+    # schedule-search strategy for the streaming/partition planners
+    # (None/heuristic = the paper's one-shot heuristic; beam/anneal search
+    # the schedule)
     plan_search: Optional[SearchConfig] = None
+    # multi-PU decode rounds run each stage's model-layer slice through
+    # the stage pipeline; False keeps the single-PU decode loop with the
+    # partition attached analytically
+    stage_decode: bool = True
+    # lane-group microbatches M of the overlapped staged decode: 0
+    # auto-tunes M (and the handoff queue depth) on the executed bubble
+    # at construction (runtime.autotune.tune_staged_decode); 1 pins the
+    # serial reference schedule; > 1 pins M, clamped to the largest
+    # divisor of max_batch <= the request
+    decode_microbatches: int = 0
+    # handoff queue depth of the staged-decode pipeline when M is pinned
+    stage_queue_depth: int = 2
+    # target fill/drain bubble of the auto-tuned microbatch depth
+    target_bubble: float = 0.10
 
 
 @dataclasses.dataclass
@@ -143,11 +175,6 @@ class ServingEngine:
                  *, eager: bool = False):
         if serve_cfg.decode_kernels and not cfg.decode_kernels:
             cfg = dataclasses.replace(cfg, decode_kernels=True)
-        if serve_cfg.stream_pus and len(serve_cfg.stream_pus) > 1:
-            raise NotImplementedError(
-                "multi-PU staged decode (stream_pus with two or more profiles) "
-                "is not ported yet (ROADMAP queue 1, step 11)"
-            )
         self.device = resolve_device(device)
         if params["embed"].device != self.device:
             raise ValueError(
@@ -165,17 +192,26 @@ class ServingEngine:
             self.niu = NoiseInjectionUnit(params, serve_cfg.aimc, seed=serve_cfg.seed)
             self.params = self.niu.params
         # the paper's weight-streaming plan of one decode round (host-side
-        # numpy; a single profile in stream_pus is the same plan)
+        # numpy; a single profile in stream_pus is the same plan), or its
+        # partition across two or more profiles
         self.streaming_plan: Optional[StreamingPlan] = None
+        self.partitioned_plan: Optional[PartitionedPlan] = None
         self.plan_s = 0.0
-        stream_pu = serve_cfg.stream_pus[0] if serve_cfg.stream_pus else serve_cfg.stream_pu
-        if stream_pu is not None:
-            t0 = time.perf_counter()
+        pus = serve_cfg.stream_pus or ([serve_cfg.stream_pu] if serve_cfg.stream_pu else [])
+        t0 = time.perf_counter()
+        if len(pus) == 1:
             self.streaming_plan = plan_model_streaming(
-                cfg, stream_pu, batch_tokens=serve_cfg.max_batch,
+                cfg, pus[0], batch_tokens=serve_cfg.max_batch,
                 search=serve_cfg.plan_search,
             )
-            self.plan_s = time.perf_counter() - t0
+        elif pus:
+            self.partitioned_plan = plan_partitioned_streaming(
+                cfg, pus, batch_tokens=serve_cfg.max_batch,
+                search=serve_cfg.plan_search,
+            )
+        self.plan_s = time.perf_counter() - t0
+        self.last_pipeline_report = None
+        self.last_autotune = None
         # decode blocks as CUDA graphs on the card, one per block length
         self.cuda_graphs = self.device.type == "cuda" and not eager
         self._graphs: Dict[int, Any] = {}
@@ -219,6 +255,74 @@ class ServingEngine:
         }
         self._lanes = torch.arange(B, device=dev)
         self._gen = torch.Generator(device=dev).manual_seed(serve_cfg.seed)
+        self._setup_staged()
+
+    def _setup_staged(self):
+        """True per-stage decode over the partitioned plan: the stages'
+        devices, the runner, and its lane-group count M (tuned on the
+        executed bubble of a functional probe block, or pinned)."""
+        sc = self.serve_cfg
+        self.stage_device_groups: Optional[List[List[torch.device]]] = None
+        self.stage_devices_shared = False
+        self._staged = None
+        self._staged_live = False
+        # between barriers: the lane groups' decode states, views of _state
+        self._staged_groups: Optional[List[Dict[str, Any]]] = None
+        self._staged_gens: List[torch.Generator] = []
+        self.staged_tune = None
+        if self.partitioned_plan is None:
+            return
+        K = len(self.partitioned_plan.stages)
+        devices = None
+        if self.device.type == "cuda":
+            self.stage_device_groups, self.stage_devices_shared = stage_devices(K)
+            devices = (
+                [self.device] * K if self.stage_devices_shared
+                else [g[0] for g in self.stage_device_groups]
+            )
+        if not sc.stage_decode:
+            return
+        from repro_torch.runtime.stage_decode import StagedDecodeRunner
+
+        # stages on one device cannot overlap real compute: keep the
+        # overlapped schedule but run each block on this thread (a CUDA
+        # graph on the card); distinct devices run the threaded executor
+        same_device = devices is None or len(set(devices)) == 1
+        self._staged = StagedDecodeRunner(
+            self.cfg, self.api, self.params, self.partitioned_plan,
+            stage_devices=devices,
+            on_trace=self.tracing.bump,
+            postdecode=self._postdecode_update,
+            coalesce=same_device,
+            capture=(
+                (lambda fn: self._capture(fn, self._staged_gens))
+                if self.cuda_graphs else None
+            ),
+        )
+        if sc.decode_microbatches == 0:
+            from repro_torch.runtime.autotune import AutotuneConfig, tune_staged_decode
+
+            self.staged_tune = tune_staged_decode(
+                self.partitioned_plan, sc.max_batch,
+                AutotuneConfig(target_bubble=sc.target_bubble),
+            )
+            self._staged.configure(
+                n_groups=self.staged_tune.n_groups,
+                queue_depth=self.staged_tune.queue_depth,
+            )
+        else:
+            m = max(
+                d for d in range(1, sc.max_batch + 1)
+                if sc.max_batch % d == 0 and d <= sc.decode_microbatches
+            )
+            self._staged.configure(n_groups=m, queue_depth=sc.stage_queue_depth)
+        # each lane group samples from a generator of its own, seeded
+        # from the engine's (the reference chains one key per group)
+        if sc.temperature > 0 and self._staged.n_groups > 1:
+            self._staged_gens = [
+                torch.Generator(device=self.device).manual_seed(self._gen.initial_seed() + 1 + g)
+                for g in range(self._staged.n_groups)
+            ]
 
     # -- client API --------------------------------------------------------
     def submit(self, prompt: np.ndarray, max_new_tokens: Optional[int] = None) -> int:
@@ -256,7 +360,13 @@ class ServingEngine:
         live traffic, which then captures nothing.  Warmup admissions
         scatter no row and no slot is active, so the served state is
         untouched -- except the sampling generator, which each call
-        advances like a live one when ``temperature > 0``."""
+        advances like a live one when ``temperature > 0``.
+
+        With staged decode the decode part is the reference's: one
+        threaded block through the executor (its virtual clock checked
+        against the overlapped recurrence, ``clock_ok``), then, where the
+        blocks are coalesced, every pow2 block length once (captured on
+        the card); the account is then reset."""
         sc = self.serve_cfg
         nbs, nb = [], 1
         while nb < _pow2_ceil(sc.max_batch):
@@ -273,13 +383,34 @@ class ServingEngine:
                     torch.zeros((0,), dtype=torch.int64, device=dev),
                     torch.ones((nb,), dtype=torch.int32, device=dev),
                 )
-        R = 1
-        while R <= sc.max_decode_block:
-            if R not in self._graphs:
-                self._decode_block(R)
-            R *= 2
+        if self._staged is not None:
+            self._warmup_staged()
+        else:
+            R = 1
+            while R <= sc.max_decode_block:
+                if R not in self._graphs:
+                    self._decode_block(R)
+                R *= 2
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
+
+    def _warmup_staged(self):
+        runner = self._staged
+        self._staged_decode_block(2, force_threaded=True)
+        if runner.coalesce and runner.n_groups > 1:
+            R = 1
+            while R <= self.serve_cfg.max_decode_block:
+                self._staged_decode_block(R)
+                R *= 2
+        self._staged_sync_state()
+        runner.export_cache()
+        runner.flush()
+        runner.stage_caches = None
+        self._staged_live = False
+        runner.rounds_executed = 0
+        runner.virtual_busy_s = 0.0
+        runner.virtual_span_s = 0.0
+        runner.last_report = None
 
     def step(self):
         """One engine round: the NIU's refresh when it is due, admission,
@@ -288,22 +419,24 @@ class ServingEngine:
         if self.niu is not None and self.rounds % sc.aimc_refresh_every == 0:
             self.niu.refresh()
             self.aimc_refreshes += 1
+            if self._staged is not None and self._staged.holds_copies:
+                self._staged.rebind(self.params)    # copies on other devices
         self._step_device()
 
     # ======================================================================
     # device-resident path
     # ======================================================================
 
-    def _sample_device(self, logits: torch.Tensor) -> torch.Tensor:
+    def _sample_device(self, logits: torch.Tensor, gen=None) -> torch.Tensor:
         """Greedy argmax (first maximum, as ``jnp.argmax``), or a
-        temperature draw from the engine's generator."""
+        temperature draw from ``gen`` (default the engine's generator)."""
         sc = self.serve_cfg
         if sc.temperature > 0:
             # torch.multinomial's own draw for one sample (argmax of p / q,
             # q ~ Exp(1)), without its check that reads the probabilities
             # back to the host, which a CUDA graph cannot capture
             probs = torch.softmax(logits.float() / sc.temperature, dim=-1)
-            q = torch.empty_like(probs).exponential_(1, generator=self._gen)
+            q = torch.empty_like(probs).exponential_(1, generator=gen or self._gen)
             return torch.argmax(probs / q, dim=-1).to(torch.int32)
         return torch.argmax(logits, dim=-1).to(torch.int32)
 
@@ -317,15 +450,19 @@ class ServingEngine:
     def _postdecode_update(self, state: Dict[str, torch.Tensor], logits: torch.Tensor):
         """Sample-append bookkeeping after one decode round, in place.
         Inactive lanes keep their ``out_buf`` row: the write is masked,
-        where the reference drops an out-of-bounds scatter."""
+        where the reference drops an out-of-bounds scatter.
+        Width-polymorphic: the lanes are the state's, so the same
+        transition serves the slot batch and a lane group's view of it
+        (which samples from its own ``state["gen"]``)."""
         sc = self.serve_cfg
-        tok = self._sample_device(logits)
+        tok = self._sample_device(logits, state.get("gen"))
         act = state["active"]
         acti = act.to(torch.int32)
         tok = torch.where(act, tok, sc.pad_token)
         col = state["out_len"].clamp(max=sc.max_len - 1).to(torch.int64)
         buf = state["out_buf"]
-        buf[self._lanes, col] = torch.where(act, tok, buf[self._lanes, col])
+        lanes = self._lanes[: act.shape[0]]
+        buf[lanes, col] = torch.where(act, tok, buf[lanes, col])
         state["out_len"] += acti
         state["pos"] += acti
         state["remaining"] -= acti
@@ -356,14 +493,61 @@ class ServingEngine:
         if graph is not None:
             graph.replay()
             return
+        self.tracing.bump("decode")
+        self._graphs[n_rounds], _ = self._capture(
+            lambda: self._decode_block_impl(self.params, self._cache, self._state, n_rounds),
+            [self._gen],
+        )
+
+    def _capture(self, fn, generators):
+        """``fn`` captured as a CUDA graph in the engine's pool; when
+        sampling, each replay advances ``generators``."""
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
-        self.tracing.bump("decode")
-        sampled = (self._gen,) if self.serve_cfg.temperature > 0 else ()
-        self._graphs[n_rounds], _ = capture_graph(
-            lambda: self._decode_block_impl(self.params, self._cache, self._state, n_rounds),
-            pool=self._pool, generators=sampled,
-        )
+        sampled = tuple(generators) if self.serve_cfg.temperature > 0 else ()
+        return capture_graph(fn, pool=self._pool, generators=sampled)
+
+    def _staged_decode_block(self, n_rounds: int, force_threaded: bool = False):
+        """``n_rounds`` true per-stage decode rounds: hidden states flow
+        through the stage pipeline (every stage running its model-layer
+        slice against its own KV cache slice), then the shared
+        ``_postdecode_update`` transition applies -- so greedy streams
+        equal the single-PU block's.
+
+        With ``n_groups == 1`` each round is one full-batch frame (the
+        serial reference).  With M > 1 the decode state is split into M
+        lane-group views and the rounds run *overlapped*
+        (``StagedDecodeRunner.decode_block``).  Every state operation is
+        per lane, so the greedy streams are unchanged; under temperature
+        each group draws from its own generator, deterministic per seed
+        but another stream than the single-PU loop's."""
+        runner = self._staged
+        if runner.bound_params is not self.params:
+            runner.rebind(self.params)
+        if not self._staged_live:
+            runner.load_cache(self._cache)
+            self._staged_live = True
+        M = runner.n_groups
+        if M == 1:
+            for _ in range(n_rounds):
+                logits = runner.decode_round(self._state["tokens"], self._state["pos"])
+                self._postdecode_update(self._state, logits)
+            return
+        if self._staged_groups is None:
+            g = self.serve_cfg.max_batch // M
+            self._staged_groups = [
+                {k: v[i * g:(i + 1) * g] for k, v in self._state.items()}
+                for i in range(M)
+            ]
+            for st, gen in zip(self._staged_groups, self._staged_gens):
+                st["gen"] = gen
+        runner.decode_block(self._staged_groups, n_rounds, force_threaded=force_threaded)
+
+    def _staged_sync_state(self):
+        """The state half of the round-boundary barrier: the lane groups'
+        states are views of ``_state``, so every update is already there;
+        the groups are dropped, and cut again at the next staged block."""
+        self._staged_groups = None
 
     def _admit_impl(self, params, cache, state, tokens, lengths, slots, max_new):
         """Batched prefill of one length bucket + on-device admission.
@@ -410,6 +594,15 @@ class ServingEngine:
             admits.append((free.pop(0), self._queue.popleft()))
         if not admits:
             return
+        if self._staged is not None and self._staged_live:
+            # the round-boundary barrier: admission mutates slot
+            # membership, so the per-stage cache slices go back into the
+            # master layout first (export_cache also flushes the
+            # overlapped session; the slices are cut again at the next
+            # staged block, which pays the fill bubble there)
+            self._staged_sync_state()
+            self._cache = self._staged.export_cache()
+            self._staged_live = False
         groups: Dict[int, List[Tuple[int, Request, np.ndarray]]] = {}
         for slot, req in admits:
             prompt = self._truncated_prompt(req)
@@ -475,7 +668,10 @@ class ServingEngine:
         r = max(1, min(r, cap))
         R = 1 << (r.bit_length() - 1)          # largest power of two <= r
         t0 = time.perf_counter()
-        self._decode_block(R)
+        if self._staged is not None:
+            self._staged_decode_block(R)
+        else:
+            self._decode_block(R)
         # the designed block-boundary sync: two (B,) vectors after R rounds
         active, out_len = torch.stack(
             [self._state["active"].to(torch.int32), self._state["out_len"]]
@@ -494,6 +690,41 @@ class ServingEngine:
                 req.done_at = now
                 self.completed.append(req)
                 self._slots[i] = None
+
+    # -- executed partition (stage-parallel streaming runtime) ---------------
+    def execute_partition(self, n_microbatches: Optional[int] = None):
+        """Run the partitioned plan through the stage-parallel executor
+        (``runtime.pipeline_exec``): K stage threads, per-stage prefetch
+        workers honoring issue order, double-buffered handoffs, with
+        functional tiles (no weights move).
+
+        ``n_microbatches=None`` (the default) auto-tunes the microbatch
+        depth and handoff queue depth against
+        ``ServeConfig.target_bubble`` on the *executed* bubble
+        (``runtime.autotune``); an integer pins M.  The measured pipeline
+        throughput and fill bubble land in :meth:`stats` beside the
+        analytic numbers."""
+        if self.partitioned_plan is None:
+            raise ValueError("engine has no partitioned plan "
+                             "(ServeConfig.stream_pus not set or K=1)")
+        if n_microbatches is None:
+            from repro_torch.runtime.autotune import AutotuneConfig, tune_pipeline
+
+            result = tune_pipeline(
+                self.partitioned_plan,
+                AutotuneConfig(target_bubble=self.serve_cfg.target_bubble),
+            )
+            self.last_autotune = result
+            self.last_pipeline_report = result.report
+            return result.report
+        from repro_torch.runtime.pipeline_exec import execute_partitioned_plan
+
+        report = execute_partitioned_plan(
+            self.partitioned_plan, n_microbatches=n_microbatches
+        )
+        self.last_autotune = None     # pinned M supersedes any prior tune
+        self.last_pipeline_report = report
+        return report
 
     # -- metrics --------------------------------------------------------------
     def stats(self) -> Dict[str, float]:
@@ -531,6 +762,73 @@ class ServingEngine:
                 {f"stream_{k}": v for k, v in self.streaming_plan.summary().items()}
             )
             out["plan_time_s"] = self.plan_s
+        if self.partitioned_plan is not None:
+            out.update(self._partition_stats())
+        return out
+
+    def _partition_stats(self) -> Dict[str, float]:
+        """The reference's ``partition_*`` and ``stage_decode*`` keys."""
+        p = self.partitioned_plan
+        out = {
+            "plan_time_s": self.plan_s,
+            "partition_stages": float(len(p.stages)),
+            "partition_fps": p.fps,
+            "partition_latency_s": p.latency_s,
+            "partition_bottleneck_s": p.bottleneck_s,
+            "partition_stall_s": sum(s.plan.total_stall for s in p.stages),
+        }
+        r = self.last_pipeline_report
+        if r is not None:
+            out.update({
+                "partition_executed_fps": r.measured_fps,
+                # vs the steady-state analytic fps: < 1 by the fill bubble
+                "partition_executed_vs_analytic": (
+                    r.measured_fps / r.steady_fps if r.steady_fps > 0 else 0.0
+                ),
+                "partition_bubble_measured": r.bubble_measured,
+                "partition_bubble_predicted": r.bubble_predicted,
+                "partition_executed_wall_s": r.wall_s,
+                "partition_microbatches": float(r.n_microbatches),
+            })
+        a = self.last_autotune
+        if a is not None:
+            out.update({
+                "partition_autotuned_m": float(a.n_microbatches),
+                "partition_autotuned_queue_depth": float(a.queue_depth),
+                "partition_autotune_target_bubble": a.target_bubble,
+                "partition_autotune_within_tolerance": float(a.within_tolerance),
+                "partition_autotune_trials": float(len(a.trials)),
+            })
+        if self.stage_device_groups is not None:
+            groups = self.stage_device_groups
+            out["partition_stage_devices"] = float(
+                len(groups[0]) if self.stage_devices_shared
+                else sum(len(g) for g in groups)
+            )
+        runner = self._staged
+        if runner is not None:
+            # fold any open overlapped session into the virtual account
+            # so the reported bubble covers every block
+            runner.flush()
+            out.update({
+                "stage_decode": 1.0,
+                "stage_decode_rounds": float(runner.rounds_executed),
+                "stage_decode_clock_ok": float(runner.clock_ok),
+                "stage_decode_coalesced": float(runner.coalesce),
+                "stage_decode_microbatches": float(runner.n_groups),
+                "stage_decode_queue_depth": float(runner.queue_depth),
+                "stage_decode_bubble": runner.bubble_fraction,
+            })
+            for k, (a0, b0) in enumerate(runner.ranges):
+                out[f"stage{k}_decode_layers"] = float(b0 - a0)
+            t = self.staged_tune
+            if t is not None:
+                out.update({
+                    "stage_decode_autotuned": 1.0,
+                    "stage_decode_autotune_target_bubble": t.target_bubble,
+                    "stage_decode_autotune_within_tolerance": float(t.within_tolerance),
+                    "stage_decode_autotune_trials": float(len(t.trials)),
+                })
         return out
 
 
@@ -683,7 +981,7 @@ def plan_partitioned_streaming(
     and each stage gets its own two-phase schedule (capacity + load
     channel per PU).  ``search`` selects each stage's schedule-search
     strategy.  Each stage also carries the model-layer decode range
-    (:func:`attach_decode_ranges`) that staged decode (step 11) will run.
+    (:func:`attach_decode_ranges`) that ``runtime.stage_decode`` runs.
     """
     gemms = model_gemms(cfg, batch_tokens)
     pplan = partition_gemms(gemms, list(pus), search=search)

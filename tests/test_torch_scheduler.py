@@ -176,13 +176,6 @@ def test_table1_fleet_matches_jax(variant, fps, fps_per_tops):
     assert (tf.fps, tf.tops, tf.fps_per_tops) == (jf.fps, jf.tops, jf.fps_per_tops)
 
 
-def test_fleet_execute_pipelines_waits_for_step_11():
-    tl = tsim.resnet_gemm_layers(18)
-    tf = tsim.FleetSim(pipelines=[("k2", tsim.simulate_partitioned([tpu.PU_1X, tpu.PU_2X], tl), 1)])
-    with pytest.raises(NotImplementedError, match="step 11"):
-        tf.execute_pipelines()
-
-
 # ------------------------------------------------------------------ WRB --
 
 

@@ -4,9 +4,9 @@ planner's examples, against the JAX package.
 ``ServeConfig(stream_pu=...)`` on smoke olmo-1b: the engine's ``stream_*``
 stats equal the JAX engine's under the same profile, and planning changes
 no served token.  ``launch.serve --stream --device cpu`` plans under the
-H100 host-offload profile.  Staged multi-PU decode (two or more
-``stream_pus``) and the families the port does not serve yet fail at once,
-naming their ROADMAP step.  ``examples/resnet_paper.py`` steps 3-4 give the
+H100 host-offload profile.  The families the port does not serve yet fail
+at once, naming their ROADMAP step (staged multi-PU decode, two or more
+``stream_pus``, is ``tests/test_torch_stage_decode.py``'s).  ``examples/resnet_paper.py`` steps 3-4 give the
 JAX example's schedule and Table I numbers.
 """
 import json
@@ -115,12 +115,6 @@ def test_launcher_stream_plans_with_the_h100_profile(capsys):
         assert (eng.streaming_plan is None) == (not extra)
     assert streams[0] == streams[1] == streams[2]
     assert eng.streaming_plan.plan.search.startswith("anneal") and eng.streaming_plan.pu == host
-
-
-def test_stream_pus_two_or_more_wait_for_step_11():
-    pus = [tpu.h100_host_offload_config(), tpu.h100_config()]
-    with pytest.raises(NotImplementedError, match="step 11"):
-        _port(stream_pus=pus)
 
 
 @pytest.mark.parametrize("arch, step", [("mixtral-8x7b", 12), ("mamba2-780m", 12),
