@@ -18,7 +18,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``GRAPH_COPIES`` copies of its weights), and of each launch alone with
    its grid and TB/s (the
    QKV GEMV, the split attention, the MLP's two GEMVs, the attention's
-   output projection).
+   output projection).  The attention also at the query groups of
+   nemotron-4-15b (48 heads over 8, G = 6) and starcoder2-15b (48 over 4,
+   G = 12) with d 6144: every mask case, equal bits twice, ``Timer`` and
+   ``graph_ms`` times, SDPA + ``@ wo``, the bound; after the build, the
+   registers and spill bytes of every ``attn_kernel`` instantiation from
+   the ptxas report.
 2a. PU kernel phase, on a seeded full-width ResNet-50 (224x224x3 int8
    image): ``int8_gemm`` and ``im2col`` against their plain versions bit
    for bit at the operands of every call of one forward (53 GEMMs on the
@@ -123,20 +128,23 @@ Phases, in order; any failure raises and the script exits non-zero:
    PU_1x's URAM, and the simulated Table I row; host-side numpy).
 4c. ``[multi-pu] serve``: the serve phase's kernel run with ``--multi-pu
    2`` (one decode round's GEMMs split over two copies of the H100
-   host-offload profile, every round through the stage pipeline, each
-   stage running its own layer slice with the decode kernels): (a) the
-   serial schedule, ``--microbatches 1``, eager (stage threads on their
-   own streams): its greedy streams equal the single-PU kernel run's; (b)
-   the default, M auto-tuned on the executed bubble, the lane-group blocks
-   coalesced on the engine's thread and replayed as CUDA graphs: no
-   capture after warmup, the split-K counters zero after the replays, and
-   its logits held teacher-forced to the single-PU kernel path's within
-   ``LOGIT_ATOL`` (an eager staged run fed the single-PU run's tokens
-   against an eager single-PU run fed the same), with the count of
-   streams that are equal; then ``execute_partition`` (the partition
-   through the stage-parallel runtime with functional tiles); (c) with
-   two or more cards, the stages on their own devices (the threaded
-   executor); with one, a line that says the stages share it.  Tokens/s,
+   host-offload profile, each stage running its own layer slice with the
+   decode kernels; the stages share the card, so each block runs on the
+   engine's thread): (a) ``--microbatches 1``, eager: its greedy streams
+   equal the single-PU kernel run's; (b) the default, M = 1 on the shared
+   card (no tuner), the whole batch through both stages in one CUDA graph
+   per block length: no capture after warmup, the split-K counters zero
+   after the replays, the single-PU kernel run's greedy streams, and its
+   round beside the single-PU captured round; then ``execute_partition``
+   (the partition through the stage-parallel runtime with functional
+   tiles); (b2) ``--microbatches 2``, two lane groups, captured: no
+   capture after warmup, its streams equal to the same engine run
+   eagerly, and its logits held teacher-forced to the single-PU kernel
+   path's within ``LOGIT_ATOL`` (an eager staged run fed the single-PU
+   run's tokens against an eager single-PU run fed the same), with the
+   count of streams that are equal; (c) with two or more cards, the
+   stages on their own devices (the threaded executor, M tuned); with
+   one, a line that says the stages share it.  Tokens/s,
    the round time, ``partition_*`` and ``stage_decode*`` stats, the tuned
    M and queue depth, and each run's launches (16 a layer slice a lane
    group a round).
@@ -159,15 +167,26 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``gemv_kernel``), the device's idle share inside the 32-round block,
    and (captured) the launches counted by ``stats()`` against the
    kernels the profiler saw.
-8. Print the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
+8. ``[serve] starcoder2-15b`` and ``[serve] nemotron-4-15b``: each model
+   at its published widths (40 and 32 layers, d_model 6144, d_ff 24576,
+   vocab 49152 and 256000; 48 query heads over 4 and 8 KV heads), seeded
+   random bf16 weights, nothing cut, served with ``SERVE_ARGV``'s
+   requests: both paths eager and captured as in 4 (launches, no capture
+   after warmup, captured streams equal eager, the round against its
+   bound), a profiled captured block (device busy share), the
+   teacher-forced check of 5 and the fault probes of 6 at the model's bar
+   (``FAMILY_LOGIT_ATOL``); each model freed before the next is made.
+9. Print the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
    line last.
 """
 from __future__ import annotations
 
 import dataclasses
+import gc
 import importlib
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -178,6 +197,9 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 B, D, HQ, HKV, HD, FF, SK, VOCAB, LAYERS = 8, 2048, 16, 16, 128, 8192, 584, 50304, 16
+# the attention's query groups of nemotron-4-15b (48 heads over 8, G = 6)
+# and starcoder2-15b (48 over 4, G = 12), both at d_model 6144
+WIDE_GROUPS, WIDE_D = ((48, 8), (48, 4)), 6144
 ATOL = RTOL = 2e-2          # bf16 kernel vs plain version, the JAX kernel tests' bar
 # Full-model logits, kernel vs composed path on the same tokens.  On an
 # H100 the 1008 teacher-forced steps of the serve phase differed by at
@@ -195,6 +217,14 @@ AIMC_SERVE_ARGV = ["--arch", "olmo-1b", "--requests", "4", "--prompt-len", "128"
 AIMC_ROUNDS = 8             # ResNet-50 NIU rounds (refresh + captured forward)
 PIPELINE_IMAGES = 4         # [pipeline] resnet: images, one microbatch each
 MULTI_PU = ["--multi-pu", "2"]   # [multi-pu] serve: two stages
+# [serve] <arch>: the step 9 dense decoders served at their published
+# widths, and the teacher-forced bar of each, set as LOGIT_ATOL was.  On
+# an H100 the kernel path differed from the composed path by at most
+# 0.1719 (starcoder2-15b; probes 2.73 and 1.45) and 0.2554
+# (nemotron-4-15b, whose 256000 logits a step give the maximum more
+# entries; probes 6.58 and 4.47): 0.2 still sits between for starcoder2,
+# nemotron takes 0.35.
+FAMILY_LOGIT_ATOL = {"starcoder2-15b": LOGIT_ATOL, "nemotron-4-15b": 0.35}
 AIMC_REFRESHES = 5          # timed LM NIU refreshes; the median is kept
 SOURCES = {
     "fused_qkv": "src/repro_torch/kernels/csrc/decode.cu",
@@ -235,6 +265,26 @@ NIU_OPS_OLD = 43
 # 2.9e5, whose float32 ulp is 0.031) differed by at most 0.0742, i.e.
 # 2.4 ulp; the limit allows 8 ulp.
 RESNET_RTOL, RESNET_ATOL = 1e-5, 0.25
+
+
+def attn_registers(report: str) -> dict:
+    """{(G, hd): (registers, spill store bytes, spill load bytes)} of each
+    ``attn_kernel`` instantiation in an ``nvcc -Xptxas -v`` report."""
+    out, cur, spills = {}, None, (0, 0)
+    for line in report.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\S+?)'?(?: for|$)", line)
+        if m:
+            k = re.search(r"attn_kernelILi(\d+)ELi(\d+)E", m.group(1))
+            cur = (int(k.group(1)), int(k.group(2))) if k else None
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and cur:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur:
+            out[cur] = (int(m.group(1)),) + spills
+            cur, spills = None, (0, 0)
+    return out
 
 
 def card_line() -> str:
@@ -460,6 +510,57 @@ def kernel_phase(torch, timer, rates):
         library_ms=timer(attn_library), bound_ms=t_bound, bound_by=by,
     )
     del copies
+
+    # --- the attention at the query groups of nemotron-4-15b (6) and
+    # starcoder2-15b (12): every mask case, equal bits, times
+    wide = {}
+    for hq, hkv in WIDE_GROUPS:
+        G = hq // hkv
+        qg, kg, vg = rnd(B, hq, HD), rnd(B, SK, hkv, HD), rnd(B, SK, hkv, HD)
+        wog, bog = rnd(hq * HD, WIDE_D, scale=0.02), rnd(WIDE_D, scale=0.02)
+        gerr = 0.0
+        for name, ckw in cases.items():
+            for bias in (bog, None):
+                got = decode.fused_decode_attention(qg, kg, vg, wog, bias, **ckw)
+                want = ref.decode_attention_ref(qg, kg, vg, wog, bias, **ckw)
+                gerr = max(gerr, close(got, want, f"fused_decode_attention G={G} {name} "
+                                                  f"bias={bias is not None}"))
+                again = decode.fused_decode_attention(qg, kg, vg, wog, bias, **ckw)
+                assert torch.equal(got, again), f"fused_decode_attention G={G} {name}: two calls differ"
+        gplan = decode.attn_plan(B, hkv, SK, HD, sms)
+        kvg_bytes = 2 * used * hkv * HD * kg.element_size()
+        nb1 = nbytes(qg, vlen, qpos) + kvg_bytes + 2 * B * hq * HD
+        t1 = timer(lambda: decode._attention_ctx(qg, kg, vg, **tkw))
+        t_bound, by = bound(rates, nbytes(qg, wog, bog, vlen, qpos) + kvg_bytes + 2 * B * WIDE_D,
+                            4 * used * hq * HD + 2 * B * hq * HD * WIDE_D)
+        ktg, vtg = kg.transpose(1, 2), vg.transpose(1, 2)
+
+        def wide_library(qg=qg, ktg=ktg, vtg=vtg, wog=wog, bog=bog, hq=hq):
+            ctx = F.scaled_dot_product_attention(qg[:, :, None], ktg, vtg, attn_mask=sdpa_mask,
+                                                 enable_gqa=True)
+            return ctx.reshape(B, hq * HD) @ wog + bog
+
+        copies = [(kg, vg, wog)] + [tuple(t.clone() for t in (kg, vg, wog))
+                                    for _ in range(GRAPH_COPIES - 1)]
+        wide[G] = dict(
+            heads=hq, kv_heads=hkv, d_model=WIDE_D, max_abs_err=gerr,
+            ms=timer(lambda: decode.fused_decode_attention(qg, kg, vg, wog, bog, **tkw)),
+            graph_ms=graph_ms(torch, [lambda c=c: decode.fused_decode_attention(qg, *c, bog, **tkw)
+                                      for c in copies] * GRAPH_PASSES),
+            plain_ms=timer(lambda: ref.decode_attention_ref(qg, kg, vg, wog, bog, **tkw)),
+            library_ms=timer(wide_library), bound_ms=t_bound, bound_by=by,
+            launch1_ms=t1, launch1_bound_ms=bound(rates, nb1)[0],
+        )
+        del copies
+        r = wide[G]
+        print(f"[kernel] fused_decode_attention G={G} ({hq} heads over {hkv}, hd {HD}, d {WIDE_D}): "
+              f"two calls give equal bits in all {len(cases)} mask cases, with and without bo; "
+              f"max_abs_err={gerr} kernel_ms={r['ms']} graph_ms={r['graph_ms']} "
+              f"plain_ms={r['plain_ms']} library_ms={r['library_ms']} (SDPA + @ wo) "
+              f"bound_ms={t_bound} ({by}); launch 1 (attn_kernel<{G}, {HD}>) kernel_ms={t1} "
+              f"bound_ms={r['launch1_bound_ms']} ({nb1 / t1 / 1e9} TB/s) grid {B * hkv} (lane, "
+              f"kv-head) x {gplan.splits} chunks of {gplan.chunk} slots", flush=True)
+    rows["fused_decode_attention"]["wide_groups"] = wide
 
     # --- fused_mlp -------------------------------------------------------------
     wu, wg, wd = rnd(D, FF, scale=0.02), rnd(D, FF, scale=0.02), rnd(FF, D, scale=0.02)
@@ -989,15 +1090,23 @@ def model_step_phase(torch):
     del params
 
 
+def free(torch):
+    """Give back an engine's memory: its graphs and lambdas hold it in
+    reference cycles, which only the collector breaks."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def bf16_ulp(x: float) -> float:
     return 2.0 ** (math.floor(math.log2(abs(x))) - 7) if x else 2.0 ** -133
 
 
-def serve_engine(serve, kernels: bool, eager: bool = False, extra=()):
-    """The launcher's engine for the serve phase's requests (``extra``
-    arguments after them), warmed up, with the requests queued; its
-    decode blocks replay CUDA graphs unless ``eager``."""
-    argv = SERVE_ARGV + (["--decode-kernels"] if kernels else []) + list(extra)
+def serve_engine(serve, kernels: bool, eager: bool = False, extra=(), arch="olmo-1b"):
+    """The launcher's engine for the serve phase's requests to ``arch``
+    (``extra`` arguments after them), warmed up, with the requests queued;
+    its decode blocks replay CUDA graphs unless ``eager``."""
+    argv = ["--arch", arch] + SERVE_ARGV[2:] + (["--decode-kernels"] if kernels else []) + list(extra)
+    gc.collect()        # an engine left in a reference cycle still holds its weights
     args = serve.build_parser().parse_args(argv)
     engine = serve.make_engine(args, eager=eager)
     engine.warmup()
@@ -1038,62 +1147,84 @@ def scratch_left_zero(torch, graphs, what: str) -> int:
     return len(pairs)
 
 
-def serve_phase(torch, rates):
-    """Timed runs of both paths, each eager and captured (the main path),
-    nothing hooked in: stats, launch counts of each run, the greedy
-    streams, equal between eager and captured; then a temperature run
-    eager and captured."""
+def round_bytes(engine) -> tuple:
+    """(weight bytes, KV-cache bytes) a decode round reads at least: every
+    layer weight, the final norm and the unembedding once (of an untied
+    embedding only the batch's rows, left out), and the whole cache."""
+    p = engine.params
+    wb = tree_bytes(p) - (0 if engine.cfg.tie_embeddings else nbytes(p["embed"]))
+    return wb, tree_bytes(engine._cache)
+
+
+def serve_runs(torch, rates, arch="olmo-1b"):
+    """Timed runs of both paths of ``arch``, each eager and captured (the
+    main path), nothing hooked in: stats, launch counts of each run, the
+    greedy streams, equal between eager and captured; the captured kernel
+    round against its bound."""
     from repro_torch.launch import serve
 
+    pre = "" if arch == "olmo-1b" else f"{arch} "
     runs = {}
     for kernels in (False, True):
         for eager in (True, False):
-            engine = serve_engine(serve, kernels, eager)
+            engine = serve_engine(serve, kernels, eager, arch=arch)
+            cfg = engine.cfg
             st, launches, captures = served(torch, engine)
             streams = {r.uid: r.out_tokens for r in engine.completed}
             label = ("kernels" if kernels else "composed") + ("_eager" if eager else "")
-            tag = "[serve]" if eager else "[graph] serve"
-            print(f"{tag} {label}: tokens_per_s={st['tokens_per_s']} mean_ttft_s={st['mean_ttft_s']} "
+            head = "[serve]" if eager else "[graph] serve"
+            print(f"{head} {pre}{label}: tokens_per_s={st['tokens_per_s']} mean_ttft_s={st['mean_ttft_s']} "
                   f"mean_decode_round_s={st['mean_decode_round_s']} decode_rounds={st['decode_rounds']} "
                   f"launches={launches} graphs captured at warmup={captures} after=0", flush=True)
             assert st["completed"] == REQUESTS and len(streams) == REQUESTS, st
-            assert all(len(s) == MAX_NEW and all(0 <= t < VOCAB for t in s) for s in streams.values())
+            assert all(len(s) == MAX_NEW and all(0 <= t < cfg.vocab for t in s)
+                       for s in streams.values())
             assert st["cuda_graphs"] == float(not eager) and captures == (0 if eager else 6), (st, captures)
-            want = LAYERS * engine.decode_rounds if kernels else 0
+            want = cfg.n_layers * engine.decode_rounds if kernels else 0
             assert all(n == want for n in launches.values()), (launches, want)
             assert not kernels or want > 0
             assert (st["kernel_launches_qkv"], st["kernel_launches_attn"],
                     st["kernel_launches_mlp"]) == tuple(float(n) for n in launches.values())
             if kernels and not eager:
-                # least time a round could take: every weight and the whole
-                # KV cache read once at the card's memory rate
-                wb, kvb = tree_bytes(engine.params), tree_bytes(engine._cache)
+                # least time a round could take: the weights it uses and the
+                # whole KV cache read once at the card's memory rate
+                wb, kvb = round_bytes(engine)
                 bound_s = (wb + kvb) / rates["bytes"]
-                print(f"[serve] round bound {bound_s * 1e3} ms (weights {wb} B + KV cache {kvb} B "
+                print(f"[serve] {pre}round bound {bound_s * 1e3} ms (weights {wb} B + KV cache {kvb} B "
                       f"at {rates['bytes']} B/s); kernel-path round / bound = "
                       f"{st['mean_decode_round_s'] / bound_s}", flush=True)
             if not eager:
                 scratch_left_zero(torch, engine._graphs.values(), f"the {label} run's replays")
-            runs[label] = dict(streams=streams, launches=launches,
+            runs[label] = dict(streams=streams, launches=launches, ttft_s=st["mean_ttft_s"],
                                round_s=st["mean_decode_round_s"], tokens_per_s=st["tokens_per_s"])
             del engine
-            torch.cuda.empty_cache()
+            free(torch)
         path = "kernels" if kernels else "composed"
         eq = runs[path]["streams"] == runs[path + "_eager"]["streams"]
-        print(f"[graph] serve {path}: greedy streams of the captured run "
+        print(f"[graph] serve {pre}{path}: greedy streams of the captured run "
               f"{'equal' if eq else 'DIFFER from'} the eager run's ({REQUESTS} requests); round "
               f"{runs[path + '_eager']['round_s'] * 1e3} -> {runs[path]['round_s'] * 1e3} ms, "
               f"{runs[path + '_eager']['tokens_per_s']} -> {runs[path]['tokens_per_s']} tokens/s",
               flush=True)
-        assert eq, f"{path}: the captured decode blocks changed the greedy streams"
+        assert eq, f"{arch} {path}: the captured decode blocks changed the greedy streams"
     same = sum(runs["kernels"]["streams"][u] == s for u, s in runs["composed"]["streams"].items())
-    print(f"[serve] greedy streams: {same}/{REQUESTS} identical between the paths", flush=True)
+    print(f"[serve] {pre}greedy streams: {same}/{REQUESTS} identical between the paths", flush=True)
+    return runs
+
+
+def serve_phase(torch, rates):
+    """olmo-1b's timed runs (``serve_runs``), then a temperature run eager
+    and captured."""
+    from repro_torch.launch import serve
+
+    runs = serve_runs(torch, rates)
     temp = {}
     for eager in (True, False):
         engine = serve_engine(serve, True, eager, TEMP_ARGV)
         served(torch, engine)
         temp[eager] = ({r.uid: r.out_tokens for r in engine.completed}, engine._gen.get_offset())
         del engine
+        free(torch)
     print(f"[graph] serve temperature 0.8 (kernels): the captured run's streams "
           f"{'equal' if temp[True][0] == temp[False][0] else 'DIFFER from'} the eager run's; "
           f"the sampling generator's offset after the run: eager {temp[True][1]}, captured "
@@ -1143,13 +1274,15 @@ def multi_pu_report(want, label, engine, st, launches, captures):
 
 
 def multi_pu_serve_phase(torch, runs):
-    """``[multi-pu] serve``: olmo-1b at full width through two stages,
-    serial and eager, then auto-tuned and captured, then (with two or more
-    cards) on per-stage devices."""
+    """``[multi-pu] serve``: olmo-1b at full width through two stages on
+    the shared card: (a) ``--microbatches 1``, eager; (b) the default, M =
+    1 as one captured pass of the whole batch; (b2) ``--microbatches 2``,
+    captured and eager, teacher-forced to the single-PU kernel path; then
+    (c), with two or more cards, on per-stage devices."""
     from repro_torch.launch import serve
 
     want = runs["kernels"]["streams"]
-    # (a) the serial reference schedule, eager: the single-PU bits
+    # (a) one lane group, eager: the single-PU bits
     engine = serve_engine(serve, True, True, MULTI_PU + ["--microbatches", "1"])
     st, launches, captures = served(torch, engine)
     streams, same = multi_pu_report(want, "(a) --microbatches 1, eager", engine, st, launches,
@@ -1157,36 +1290,50 @@ def multi_pu_serve_phase(torch, runs):
     assert engine._staged.n_groups == 1 and captures == 0
     assert streams == want, "the serial staged schedule changed the greedy streams"
     del engine
-    torch.cuda.empty_cache()
-    # (b) auto-tuned M, coalesced blocks replayed as CUDA graphs
+    free(torch)
+    # (b) the default on a shared card: M = 1, no tuner, the whole batch
+    # through every stage in one CUDA graph per block length
     engine = serve_engine(serve, True, False, MULTI_PU)
     st, launches, captures = served(torch, engine)
-    streams, same = multi_pu_report(want, "(b) M auto-tuned, captured", engine, st, launches,
-                                    captures)
-    m = engine._staged.n_groups
-    assert engine._staged.coalesce and st["stage_decode_autotuned"] == 1.0
-    assert captures == (len(engine._staged.graphs) if m > 1 else 0), captures
+    streams, same = multi_pu_report(want, "(b) default (M = 1 on the shared card), captured",
+                                    engine, st, launches, captures)
+    assert engine.stages_share_card and engine._staged.coalesce and engine._staged.n_groups == 1
+    assert engine.staged_tune is None and "stage_decode_autotuned" not in st, st
+    assert captures == len(engine._staged.graphs) == 6, captures
+    assert streams == want, "the captured M = 1 staged pass changed the greedy streams"
     scratch_left_zero(torch, engine._staged.graphs, "the multi-pu run's replays")
-    tune = engine.staged_tune
-    print(f"[multi-pu] serve (b) tuner trials {tune.trials} depth trials {tune.depth_trials}",
-          flush=True)
+    print(f"[multi-pu] serve (b): round {st['mean_decode_round_s'] * 1e3} ms captured at M = 1 "
+          f"against the single-PU captured round {runs['kernels']['round_s'] * 1e3} ms of this "
+          f"run (ratio {st['mean_decode_round_s'] / runs['kernels']['round_s']}); greedy streams "
+          f"{same}/{REQUESTS} equal to the single-PU kernel run's", flush=True)
     engine.execute_partition()
     pst = {k: v for k, v in engine.stats().items() if k.startswith("partition_")}
     print(f"[multi-pu] execute_partition (functional tiles, M auto-tuned): {pst}", flush=True)
     del engine
-    torch.cuda.empty_cache()
+    free(torch)
+    # (b2) M = 2 pinned: two lane groups, coalesced and captured
+    m2 = MULTI_PU + ["--microbatches", "2"]
+    engine = serve_engine(serve, True, False, m2)
+    st, launches, captures = served(torch, engine)
+    streams, same = multi_pu_report(want, "(b2) --microbatches 2, captured", engine, st, launches,
+                                    captures)
+    assert engine._staged.coalesce and engine._staged.n_groups == 2 and engine.staged_tune is None
+    assert captures == len(engine._staged.graphs) == 6, captures
+    scratch_left_zero(torch, engine._staged.graphs, "the multi-pu M = 2 run's replays")
+    del engine
+    free(torch)
     # the same engine run eagerly: the captured blocks must give its bits
-    engine = serve_engine(serve, True, True, MULTI_PU)
+    engine = serve_engine(serve, True, True, m2)
     st, launches, _ = served(torch, engine)
-    eager, _ = multi_pu_report(want, "(b) the same, eager", engine, st, launches, 0)
-    assert engine._staged.n_groups == m and engine._staged.coalesce and not engine._staged.graphs
-    print(f"[multi-pu] serve (b): captured greedy streams "
+    eager, _ = multi_pu_report(want, "(b2) the same, eager", engine, st, launches, 0)
+    assert engine._staged.n_groups == 2 and engine._staged.coalesce and not engine._staged.graphs
+    print(f"[multi-pu] serve (b2): captured greedy streams "
           f"{'equal' if eager == streams else 'DIFFER from'} the eager run's", flush=True)
     assert eager == streams, "the captured staged blocks served other tokens than the eager ones"
     del engine
-    torch.cuda.empty_cache()
+    free(torch)
     _, want_rounds, _ = logged_run(torch, kernels=True, feed=want)
-    staged_forced(torch, "(b)", streams, m, want, want_rounds)
+    staged_forced(torch, "(b2)", streams, 2, want, want_rounds, m2)
     per_stage_devices_phase(torch, want, want_rounds)
 
 
@@ -1210,14 +1357,16 @@ def per_stage_devices_phase(torch, want, want_rounds):
                                  st, launches, captures)
     m = engine._staged.n_groups
     del engine
+    free(torch)
     staged_forced(torch, "(c)", streams, m, want, want_rounds)
 
 
-def staged_forced(torch, label, streams, m, want, want_rounds):
-    """Hold a staged engine's logits (``--multi-pu 2``, M = ``m``) to the
-    single-PU kernel path's at every step of every request, teacher-forced
-    on ``want``, and tie the timed staged run's ``streams`` to them."""
-    got_streams, got_rounds, m_forced = logged_run(torch, True, feed=want, extra=MULTI_PU)
+def staged_forced(torch, label, streams, m, want, want_rounds, extra=MULTI_PU):
+    """Hold a staged engine's logits (launcher arguments ``extra``, M =
+    ``m``) to the single-PU kernel path's at every step of every request,
+    teacher-forced on ``want``, and tie the timed staged run's ``streams``
+    to them."""
+    got_streams, got_rounds, m_forced = logged_run(torch, True, feed=want, extra=extra)
     assert m_forced == m, (m_forced, m)
     diffs, flips = compare_rounds(torch, want_rounds, got_rounds)
     d = sorted(diffs.values())
@@ -1301,7 +1450,7 @@ def plan_paper_phase():
     resnet_paper.main(["--variant", str(RESNET), "--plan-only"])
 
 
-def logged_run(torch, kernels: bool, feed=None, extra=()):
+def logged_run(torch, kernels: bool, feed=None, extra=(), arch="olmo-1b"):
     """An untimed, eager run of the serve phase's requests (``extra``
     launcher arguments after them) that keeps every round's logits on the
     card; returns (streams, rounds, M).  With ``feed`` (uid -> stream)
@@ -1315,7 +1464,7 @@ def logged_run(torch, kernels: bool, feed=None, extra=()):
     its offset there) and feeds the group's next input."""
     from repro_torch.launch import serve
 
-    engine = serve_engine(serve, kernels, eager=True, extra=extra)     # the hook runs every round
+    engine = serve_engine(serve, kernels, eager=True, extra=extra, arch=arch)  # the hook runs every round
     state, lanes, B = engine._state, engine._lanes, len(engine._slots)
     table = torch.zeros_like(state["out_buf"])
     loaded = [None] * B
@@ -1370,6 +1519,7 @@ def logged_run(torch, kernels: bool, feed=None, extra=()):
     streams = {r.uid: r.out_tokens for r in engine.completed}
     m = 1 if engine._staged is None else engine._staged.n_groups
     del engine
+    free(torch)
     return streams, rounds, m
 
 
@@ -1405,36 +1555,40 @@ def compare_rounds(torch, want_rounds, got_rounds):
     return dict(zip(keys, diff)), flips
 
 
-def forced_phase(torch, runs):
+def forced_phase(torch, runs, arch="olmo-1b", bar=LOGIT_ATOL):
     """Hold the kernel path's logits to the composed path's at every step
-    of every request, on the same tokens, and tie the timed kernel run's
-    streams to those checked logits."""
-    want_streams, want_rounds, _ = logged_run(torch, kernels=False)
+    of every request, on the same tokens, within ``bar``, and tie the
+    timed kernel run's streams to those checked logits."""
+    pre = "" if arch == "olmo-1b" else f"{arch} "
+    want_streams, want_rounds, _ = logged_run(torch, kernels=False, arch=arch)
     assert want_streams == runs["composed"]["streams"], "the composed path is not deterministic"
-    got_streams, got_rounds, _ = logged_run(torch, kernels=True, feed=want_streams)
+    got_streams, got_rounds, _ = logged_run(torch, kernels=True, feed=want_streams, arch=arch)
     diffs, flips = compare_rounds(torch, want_rounds, got_rounds)
+    del got_rounds
     assert len(diffs) == REQUESTS * (MAX_NEW - 1), len(diffs)
     d = sorted(diffs.values())
-    print(f"[forced] {len(d)} (request, step) logit vectors, kernel vs composed on the same "
+    print(f"[forced] {pre}{len(d)} (request, step) logit vectors, kernel vs composed on the same "
           f"tokens: max |diff| {d[-1]}, median {statistics.median(d)}, "
-          f"p99 {d[int(0.99 * (len(d) - 1))]} (limit {LOGIT_ATOL})", flush=True)
-    for (uid, step), g, ulps, c in flips:
-        print(f"[forced] request {uid} step {step}: argmax differs; composed top-2 gap {g} "
-              f"= {ulps} bf16 ulp; the two tokens' logits differ between the paths by {c}",
-              flush=True)
-    print(f"[forced] argmax differs at {len(flips)} of {len(d)} steps", flush=True)
-    assert d[-1] <= LOGIT_ATOL, f"logits differ by {d[-1]} > {LOGIT_ATOL}"
+          f"p99 {d[int(0.99 * (len(d) - 1))]} (limit {bar})", flush=True)
+    if arch == "olmo-1b":
+        for (uid, step), g, ulps, c in flips:
+            print(f"[forced] request {uid} step {step}: argmax differs; composed top-2 gap {g} "
+                  f"= {ulps} bf16 ulp; the two tokens' logits differ between the paths by {c}",
+                  flush=True)
+    gaps = sorted(ulps for _, _, ulps, _ in flips) or [0.0]
+    print(f"[forced] {pre}argmax differs at {len(flips)} of {len(d)} steps; the composed top-2 "
+          f"gap there: median {statistics.median(gaps)}, max {gaps[-1]} bf16 ulp", flush=True)
+    assert d[-1] <= bar, f"{arch}: logits differ by {d[-1]} > {bar}"
     # the timed kernel run scored the composed prefix up to its first
     # divergence, so up to and including it its tokens are the checked ones
     tie_streams(runs["kernels"]["streams"], runs["composed"]["streams"], got_streams)
     return want_streams, want_rounds
 
 
-def fault_phase(torch, want_streams, want_rounds):
+def fault_phase(torch, want_streams, want_rounds, arch="olmo-1b", bar=LOGIT_ATOL):
     """Run the teacher-forced comparison with a fault put into the kernel
     path's wiring (not into the kernels, which the kernel phase holds):
-    each must move the logits past ``LOGIT_ATOL``, or the check is blind
-    to it."""
+    each must move the logits past ``bar``, or the check is blind to it."""
     from repro_torch.kernels import dispatch
 
     qkv, attn = dispatch.decode_qkv, dispatch.decode_attention
@@ -1450,16 +1604,38 @@ def fault_phase(torch, want_streams, want_rounds):
                              "decode_attention")):
         setattr(dispatch, patch, fn)
         try:
-            _, rounds, _ = logged_run(torch, kernels=True, feed=want_streams)
+            _, rounds, _ = logged_run(torch, kernels=True, feed=want_streams, arch=arch)
         finally:
             dispatch.decode_qkv, dispatch.decode_attention = qkv, attn
         diffs, flips = compare_rounds(torch, want_rounds, rounds)
         d = sorted(diffs.values())
-        print(f"[fault] {name}: max |diff| {d[-1]}, median {statistics.median(d)}, "
-              f"argmax differs at {len(flips)} of {len(d)} steps (limit {LOGIT_ATOL})", flush=True)
-        assert d[-1] > LOGIT_ATOL, f"the teacher-forced check does not see the fault '{name}'"
+        pre = "" if arch == "olmo-1b" else f"{arch} "
+        print(f"[fault] {pre}{name}: max |diff| {d[-1]}, median {statistics.median(d)}, "
+              f"argmax differs at {len(flips)} of {len(d)} steps (limit {bar})", flush=True)
+        assert d[-1] > bar, f"{arch}: the teacher-forced check does not see the fault '{name}'"
         del rounds
         torch.cuda.empty_cache()
+
+
+def family_phase(torch, rates, arch: str):
+    """``[serve] <arch>``: a dense decoder of step 9 at its published
+    widths with seeded random bf16 weights, nothing cut, served with the
+    olmo-1b phase's requests: both paths eager and captured
+    (``serve_runs``), a profiled captured block, the kernel path
+    teacher-forced to the composed path within the arch's bar, and the
+    two fault probes above it."""
+    bar = FAMILY_LOGIT_ATOL[arch]
+    runs = serve_runs(torch, rates, arch)
+    prof = profile_phase(torch, runs, arch, modes=(False,))[f"{arch} captured"]
+    want_streams, want_rounds = forced_phase(torch, runs, arch, bar)
+    fault_phase(torch, want_streams, want_rounds, arch, bar)
+    del want_rounds
+    free(torch)
+    k = runs["kernels"]
+    print(f"[serve] {arch}: captured kernel path {k['round_s'] * 1e3} ms a round, "
+          f"{k['tokens_per_s']} tokens/s, mean TTFT {k['ttft_s']} s, device busy share of a "
+          f"captured block {prof['busy_ms'] / prof['window_ms']} (composed path captured "
+          f"{runs['composed']['round_s'] * 1e3} ms); teacher-forced bar {bar}", flush=True)
 
 
 def kernel_name(name: str) -> str:
@@ -1490,7 +1666,7 @@ def device_busy(torch, prof, window_name: str):
     return w1 - w0, busy, by_name
 
 
-def decode_block_profile(torch, eager: bool):
+def decode_block_profile(torch, eager: bool, arch="olmo-1b"):
     """torch.profiler over the kernel path's first engine step (the first
     wave's prefill and a 32-round decode block, replayed from its CUDA
     graph unless ``eager``): (rounds, window us, device-busy us, {device
@@ -1501,7 +1677,7 @@ def decode_block_profile(torch, eager: bool):
     from repro_torch.kernels import decode
     from repro_torch.launch import serve
 
-    engine = serve_engine(serve, kernels=True, eager=eager)
+    engine = serve_engine(serve, kernels=True, eager=eager, arch=arch)
     inner = engine._decode_block
 
     def block(n_rounds):
@@ -1517,6 +1693,7 @@ def decode_block_profile(torch, eager: bool):
     rounds = engine.decode_rounds
     window, busy, by_name = device_busy(torch, prof, "decode_block")
     del engine
+    free(torch)
     cuda = torch.autograd.DeviceType.CUDA
     (w0, w1), = [(e.time_range.start, e.time_range.end) for e in prof.events()
                  if e.name == "decode_block" and e.device_type != cuda]
@@ -1527,16 +1704,20 @@ def decode_block_profile(torch, eager: bool):
     return rounds, window, busy, by_name, calls, launches
 
 
-def profile_phase(torch, runs):
+def profile_phase(torch, runs, arch="olmo-1b", modes=(True, False)):
     """Device time per decode round by kernel, the device's idle share
-    inside a traced decode block (``decode_block_profile``), eager and
-    captured, and the captured block's launch counts against the
-    profiler's."""
+    inside a traced decode block (``decode_block_profile``) of ``arch``,
+    eager and captured (``modes``: eager or not), and the block's launch
+    counts against the profiler's."""
+    from repro_torch.configs import get_config
+
+    n_layers = get_config(arch).n_layers
+    pre = "" if arch == "olmo-1b" else f"{arch} "
     out = {}
-    for eager in (True, False):
-        label = "eager" if eager else "captured"
+    for eager in modes:
+        label = pre + ("eager" if eager else "captured")
         round_s = runs["kernels_eager" if eager else "kernels"]["round_s"]
-        rounds, window, busy, by_name, calls, launches = decode_block_profile(torch, eager)
+        rounds, window, busy, by_name, calls, launches = decode_block_profile(torch, eager, arch)
         window_ms, busy_ms = window / 1e3 / rounds, busy / 1e3 / rounds
         tag = "[profile]" if eager else "[graph] profile"
         print(f"{tag} {label}: {rounds} rounds traced: block {window_ms} ms a round, device "
@@ -1556,7 +1737,7 @@ def profile_phase(torch, runs):
         print(f"{tag} {label}: launches counted by the wrappers {launches} -> kernels expected "
               f"{want}, seen by the profiler {got}; device ops in the block "
               f"{sum(calls.values())}", flush=True)
-        assert launches["fused_qkv"] == LAYERS * rounds and got == want, (launches, want, got)
+        assert launches["fused_qkv"] == n_layers * rounds and got == want, (launches, want, got)
         out[label] = dict(busy_ms=busy_ms, window_ms=window_ms)
     return out
 
@@ -1791,6 +1972,11 @@ def main() -> int:
           f"(one nvcc per source, in parallel)", flush=True)
     for src in libs:
         print(build.ptxas_report(src).read_text()[-4000:], flush=True)
+    regs = attn_registers(build.ptxas_report("decode").read_text())
+    for (g, hd), (n, st, ld) in sorted(regs.items()):
+        print(f"[build] attn_kernel<{g}, {hd}>: {n} registers, {st} bytes spill stores, {ld} bytes "
+              f"spill loads", flush=True)
+    assert {(g, hd) for g in (1, 2, 4, 6, 8, 12) for hd in (32, 64, 128)} <= set(regs), regs
 
     rates = card_rates(name)
     timer = Timer(torch, TIMED_CALLS)
@@ -1819,6 +2005,9 @@ def main() -> int:
     del want_rounds
     torch.cuda.empty_cache()
     profile_phase(torch, runs)
+    free(torch)
+    for arch in FAMILY_LOGIT_ATOL:
+        family_phase(torch, rates, arch)
     # each kernel's launches on its main path: the captured serve run, the
     # captured ResNet-50 forward, the AIMC rounds
     launches = {**runs["kernels"]["launches"], "niu_refresh": aimc["launches"]["niu_refresh"],

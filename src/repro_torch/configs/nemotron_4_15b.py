@@ -1,0 +1,19 @@
+"""Nemotron-4-15B [dense]: 32L d_model=6144 48H (GQA kv=8) d_ff=24576
+
+vocab=256000, squared-ReLU MLP [arXiv:2402.16819].
+"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="nemotron-4-15b",
+    family="lm",
+    n_layers=32,
+    d_model=6144,
+    n_heads=48,
+    n_kv_heads=8,
+    d_ff=24576,
+    vocab=256000,
+    rope_theta=1e4,
+    norm="layernorm",
+    mlp="sq_relu",
+)

@@ -798,6 +798,10 @@ int repro_gemv(const void* x, const void* w0, const void* w1, const void* bias, 
 }
 
 // ctx (B, Hq*hd) <- single-token GQA of q (B, Hq, hd) over k/v (B, Sk, Hkv, hd),
+// G = Hq/Hkv in 1, 2, 4, 6, 8, 12 (decode.py ATTN_GROUPS: nemotron-4-15b has
+// 6, starcoder2-15b 12) and hd in 32, 64, 128; qr[G][8] and acc[G][8] are
+// never live together, so G = 12 keeps them in registers (chip_smoke.py
+// prints each instantiation's registers and spills from the ptxas report),
 // in `splits` chunks of `chunk` slots (decode.py::attn_plan); ws holds
 // B * Hkv * splits * (Hq/Hkv) * (hd + 2) floats and counters B * Hkv
 // zeroed ints.
@@ -831,6 +835,8 @@ int repro_decode_attention(const void* q, const void* k, const void* v, const vo
   REPRO_ATTN(2, 32) REPRO_ATTN(2, 64) REPRO_ATTN(2, 128)
   REPRO_ATTN(4, 32) REPRO_ATTN(4, 64) REPRO_ATTN(4, 128)
   REPRO_ATTN(8, 32) REPRO_ATTN(8, 64) REPRO_ATTN(8, 128)
+  REPRO_ATTN(6, 32) REPRO_ATTN(6, 64) REPRO_ATTN(6, 128)
+  REPRO_ATTN(12, 32) REPRO_ATTN(12, 64) REPRO_ATTN(12, 128)
 #undef REPRO_ATTN
   return (int)cudaErrorInvalidValue;
 }

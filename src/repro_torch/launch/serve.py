@@ -1,4 +1,5 @@
-"""Serving launcher of the port: batched requests against olmo-1b.
+"""Serving launcher of the port: batched requests against a dense decoder
+(olmo-1b, starcoder2-15b or nemotron-4-15b).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b \
         [--smoke] [--decode-kernels] [--aimc] [--stream] [--multi-pu K] \
@@ -21,7 +22,9 @@ decode round across K copies of the H100 host-offload profile (the
 reference alternates its TPU profiles) and serves through true per-stage
 decode: every round runs each stage's model-layer slice through the stage
 pipeline (``runtime.stage_decode``), ``--microbatches M`` lane groups at
-a time (0, the default, tunes M on the executed bubble against
+a time (0, the default, takes M = 1 where the stages share one card --
+there a block is one captured pass of the whole batch, the single-PU
+block's kernels -- and otherwise tunes M on the executed bubble against
 ``--target-bubble``; 1 is the serial reference); after the requests
 drain, the partition also runs through the stage-parallel runtime with
 functional tiles (``execute_partition``), and the stats gain
@@ -83,8 +86,10 @@ def build_parser() -> argparse.ArgumentParser:
                     help="lane groups of the overlapped staged decode with "
                          "--multi-pu (and the depth of the executed tile "
                          "pipeline): 1 = serial reference, 0 (default) "
-                         "auto-tunes M and the handoff queue depth against "
-                         "--target-bubble on the executed bubble")
+                         "takes 1 where the stages share one card and "
+                         "otherwise auto-tunes M and the handoff queue "
+                         "depth against --target-bubble on the executed "
+                         "bubble")
     ap.add_argument("--target-bubble", type=float, default=0.10,
                     help="target fill/drain bubble of the microbatch "
                          "auto-tuner (default 0.10)")

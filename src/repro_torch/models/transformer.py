@@ -71,9 +71,12 @@ def _norm_params(cfg, shape, device):
 
 def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     """Seeded init: normal(0.02) weights from a ``torch.Generator`` on the
-    device, stored in ``cfg.dtype``; zero biases, reference norm params.
-    Shapes are the reference's (``transformer.init_params``).  The numbers
-    differ from ``jax.random``'s: tests convert reference parameters with
+    device, stored in ``cfg.dtype``; zero biases, also in ``cfg.dtype``
+    (the reference keeps them in float32 and rounds them to the compute
+    dtype before adding them; the decode kernels take them rounded);
+    reference norm params.  Shapes are the reference's
+    (``transformer.init_params``).  The numbers differ from
+    ``jax.random``'s: tests convert reference parameters with
     ``repro_torch.interop`` instead."""
     check_supported(cfg)
     device = resolve_device(device)
@@ -87,7 +90,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
         return w.normal_(0.0, 0.02, generator=gen).to(dt)
 
     def zeros(*shape):
-        return torch.zeros(shape, dtype=torch.float32, device=device)
+        return torch.zeros(shape, dtype=dt, device=device)
 
     a = {"wq": normal(L, d, dq), "wk": normal(L, d, dkv),
          "wv": normal(L, d, dkv), "wo": normal(L, dq, d)}

@@ -47,8 +47,10 @@ stage pipeline, every stage executing its model-layer slice against its
 own KV-cache slice (``runtime.stage_decode``), with greedy streams equal
 to the single-PU engine's.  The stages share the engine's card unless
 ``launch.mesh.stage_devices`` finds one device per stage; on a shared
-device an overlapped block (M > 1 lane groups) runs on the engine's
-thread and, on the card, replays one CUDA graph per block length.  The
+device a block runs on the engine's thread and, on the card, replays one
+CUDA graph per block length.  On a shared card M is 1 unless the user
+pins it (:func:`staged_lane_groups`): the block is then the single-PU
+block's kernels, stage after stage, and serves its bits.  The
 lane groups' decode states are views of the engine's state tensors, so
 splitting and merging them moves nothing.  ``stage_decode=False`` keeps
 the single-PU decode loop with the partition attached analytically, and
@@ -63,7 +65,7 @@ from __future__ import annotations
 import dataclasses
 import time
 from collections import deque
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -121,11 +123,12 @@ class ServeConfig:
     # the stage pipeline; False keeps the single-PU decode loop with the
     # partition attached analytically
     stage_decode: bool = True
-    # lane-group microbatches M of the overlapped staged decode: 0
-    # auto-tunes M (and the handoff queue depth) on the executed bubble
-    # at construction (runtime.autotune.tune_staged_decode); 1 pins the
+    # lane-group microbatches M of the overlapped staged decode: 0 takes
+    # M = 1 where the stages share one card and otherwise auto-tunes M
+    # (and the handoff queue depth) on the executed bubble at
+    # construction (runtime.autotune.tune_staged_decode); 1 pins the
     # serial reference schedule; > 1 pins M, clamped to the largest
-    # divisor of max_batch <= the request
+    # divisor of max_batch <= the request (staged_lane_groups)
     decode_microbatches: int = 0
     # handoff queue depth of the staged-decode pipeline when M is pinned
     stage_queue_depth: int = 2
@@ -162,6 +165,33 @@ def default_prefill_buckets(max_len: int) -> Tuple[int, ...]:
         b *= 2
     out.append(max_len)
     return tuple(sorted(set(out)))
+
+
+def shares_one_card(device: torch.device, shared: bool) -> bool:
+    """True when the stages of a staged decode share one CUDA device
+    (``launch.mesh.stage_devices`` returned ``shared``)."""
+    return device.type == "cuda" and shared
+
+
+def staged_lane_groups(requested: int, max_batch: int, share_card: bool,
+                       tune: Callable[[], Any]) -> Tuple[int, Any]:
+    """The staged decode's lane-group count M, and the tuner's result
+    where the tuner chose it (else ``None``).
+
+    A request (``ServeConfig.decode_microbatches`` > 0) is honoured,
+    clamped to the largest divisor of ``max_batch`` not above it.
+    Otherwise, where the stages share one card, M = 1: every lane group
+    reads every weight again, so M > 1 lengthens the round and overlaps
+    nothing on one card, and one group keeps the single-PU block's bits.
+    Otherwise ``tune()`` picks M on the executed bubble, as the
+    reference does."""
+    if requested > 0:
+        return max(d for d in range(1, max_batch + 1)
+                   if max_batch % d == 0 and d <= requested), None
+    if share_card:
+        return 1, None
+    result = tune()
+    return result.n_groups, result
 
 
 class ServingEngine:
@@ -259,8 +289,9 @@ class ServingEngine:
 
     def _setup_staged(self):
         """True per-stage decode over the partitioned plan: the stages'
-        devices, the runner, and its lane-group count M (tuned on the
-        executed bubble of a functional probe block, or pinned)."""
+        devices, the runner, and its lane-group count M (pinned, 1 where
+        the stages share one card, else tuned on the executed bubble of a
+        functional probe block: :func:`staged_lane_groups`)."""
         sc = self.serve_cfg
         self.stage_device_groups: Optional[List[List[torch.device]]] = None
         self.stage_devices_shared = False
@@ -270,6 +301,7 @@ class ServingEngine:
         self._staged_groups: Optional[List[Dict[str, Any]]] = None
         self._staged_gens: List[torch.Generator] = []
         self.staged_tune = None
+        self.stages_share_card = False
         if self.partitioned_plan is None:
             return
         K = len(self.partitioned_plan.stages)
@@ -280,6 +312,7 @@ class ServingEngine:
                 [self.device] * K if self.stage_devices_shared
                 else [g[0] for g in self.stage_device_groups]
             )
+        self.stages_share_card = shares_one_card(self.device, self.stage_devices_shared)
         if not sc.stage_decode:
             return
         from repro_torch.runtime.stage_decode import StagedDecodeRunner
@@ -294,28 +327,27 @@ class ServingEngine:
             on_trace=self.tracing.bump,
             postdecode=self._postdecode_update,
             coalesce=same_device,
-            capture=(
-                (lambda fn: self._capture(fn, self._staged_gens))
-                if self.cuda_graphs else None
-            ),
+            capture=self._staged_capture if self.cuda_graphs else None,
         )
-        if sc.decode_microbatches == 0:
+
+        def tune():
             from repro_torch.runtime.autotune import AutotuneConfig, tune_staged_decode
 
-            self.staged_tune = tune_staged_decode(
+            return tune_staged_decode(
                 self.partitioned_plan, sc.max_batch,
                 AutotuneConfig(target_bubble=sc.target_bubble),
             )
-            self._staged.configure(
-                n_groups=self.staged_tune.n_groups,
-                queue_depth=self.staged_tune.queue_depth,
-            )
-        else:
-            m = max(
-                d for d in range(1, sc.max_batch + 1)
-                if sc.max_batch % d == 0 and d <= sc.decode_microbatches
-            )
-            self._staged.configure(n_groups=m, queue_depth=sc.stage_queue_depth)
+
+        m, self.staged_tune = staged_lane_groups(
+            sc.decode_microbatches, sc.max_batch, self.stages_share_card, tune
+        )
+        self._staged.configure(
+            n_groups=m,
+            queue_depth=(
+                self.staged_tune.queue_depth if self.staged_tune is not None
+                else sc.stage_queue_depth
+            ),
+        )
         # each lane group samples from a generator of its own, seeded
         # from the engine's (the reference chains one key per group)
         if sc.temperature > 0 and self._staged.n_groups > 1:
@@ -397,7 +429,7 @@ class ServingEngine:
     def _warmup_staged(self):
         runner = self._staged
         self._staged_decode_block(2, force_threaded=True)
-        if runner.coalesce and runner.n_groups > 1:
+        if runner.coalesce and (runner.n_groups > 1 or self.stages_share_card):
             R = 1
             while R <= self.serve_cfg.max_decode_block:
                 self._staged_decode_block(R)
@@ -499,6 +531,12 @@ class ServingEngine:
             [self._gen],
         )
 
+    def _staged_capture(self, fn):
+        """A coalesced staged block captured in the engine's pool: M > 1
+        lane groups sample from their own generators, one group from the
+        engine's."""
+        return self._capture(fn, self._staged_gens or [self._gen])
+
     def _capture(self, fn, generators):
         """``fn`` captured as a CUDA graph in the engine's pool; when
         sampling, each replay advances ``generators``."""
@@ -515,12 +553,16 @@ class ServingEngine:
         equal the single-PU block's.
 
         With ``n_groups == 1`` each round is one full-batch frame (the
-        serial reference).  With M > 1 the decode state is split into M
-        lane-group views and the rounds run *overlapped*
-        (``StagedDecodeRunner.decode_block``).  Every state operation is
-        per lane, so the greedy streams are unchanged; under temperature
-        each group draws from its own generator, deterministic per seed
-        but another stream than the single-PU loop's."""
+        serial reference) through the stage threads, except where the
+        stages share one card: there the block is one coalesced pass of
+        the whole batch (a CUDA graph), stage after stage -- the
+        single-PU block's kernels in the single-PU block's order.  With
+        M > 1 the decode state is split into M lane-group views and the
+        rounds run *overlapped* (``StagedDecodeRunner.decode_block``).
+        Every state operation is per lane, so the greedy streams are
+        unchanged; under temperature each group draws from its own
+        generator, deterministic per seed but another stream than the
+        single-PU loop's."""
         runner = self._staged
         if runner.bound_params is not self.params:
             runner.rebind(self.params)
@@ -528,7 +570,7 @@ class ServingEngine:
             runner.load_cache(self._cache)
             self._staged_live = True
         M = runner.n_groups
-        if M == 1:
+        if M == 1 and (force_threaded or not self.stages_share_card):
             for _ in range(n_rounds):
                 logits = runner.decode_round(self._state["tokens"], self._state["pos"])
                 self._postdecode_update(self._state, logits)

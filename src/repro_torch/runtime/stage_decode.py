@@ -56,7 +56,10 @@ and every extra lane-group frame re-reads the whole weight set.
 account, recurrence cross-check at warmup) but executes each block on
 the caller's thread as one pass that chains every stage back to back per
 lane group -- the counterpart of the reference's one jitted ``lax.scan``
-a block.  With ``capture`` (the engine's CUDA-graph capture, on the
+a block.  With one lane group (M = 1, what the engine runs on a shared
+card unless M is pinned higher) the pass is embed, every stage's layers
+and unembed over the whole batch: the single-PU block's kernels in the
+same order, so it serves the single-PU bits.  With ``capture`` (the engine's CUDA-graph capture, on the
 card) that pass is **one CUDA graph per (M, block length)**, captured at
 its first use in the engine's graph pool and replayed after; each
 capture calls ``on_trace("decode")``, as the reference counts a jit
