@@ -21,9 +21,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    output projection).  The attention also at the query groups of
    nemotron-4-15b (48 heads over 8, G = 6) and starcoder2-15b (48 over 4,
    G = 12) with d 6144: every mask case, equal bits twice, ``Timer`` and
-   ``graph_ms`` times, SDPA + ``@ wo``, the bound; after the build, the
-   registers and spill bytes of every ``attn_kernel`` instantiation from
-   the ptxas report.
+   ``graph_ms`` times, SDPA + ``@ wo``, the bound; and at gemma3-12b's
+   (16 heads over 8, G = 2, head_dim 256, d 3840) over its serve phase's
+   cache (Sk 1608): every mask case with its local window of 1024 static
+   and dynamic, a window starting mid-chunk in every lane and one on a
+   chunk's first slot, equal bits twice, the same times at a local
+   layer, launch 1 alone at a local and a global layer; after the build,
+   the registers and spill bytes of every ``attn_kernel`` instantiation
+   (hd 32 to 256) from the ptxas report.
 2a. PU kernel phase, on a seeded full-width ResNet-50 (224x224x3 int8
    image): ``int8_gemm`` and ``im2col`` against their plain versions bit
    for bit at the operands of every call of one forward (53 GEMMs on the
@@ -167,15 +172,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``gemv_kernel``), the device's idle share inside the 32-round block,
    and (captured) the launches counted by ``stats()`` against the
    kernels the profiler saw.
-8. ``[serve] starcoder2-15b`` and ``[serve] nemotron-4-15b``: each model
-   at its published widths (40 and 32 layers, d_model 6144, d_ff 24576,
-   vocab 49152 and 256000; 48 query heads over 4 and 8 KV heads), seeded
-   random bf16 weights, nothing cut, served with ``SERVE_ARGV``'s
-   requests: both paths eager and captured as in 4 (launches, no capture
-   after warmup, captured streams equal eager, the round against its
-   bound), a profiled captured block (device busy share), the
-   teacher-forced check of 5 and the fault probes of 6 at the model's bar
-   (``FAMILY_LOGIT_ATOL``); each model freed before the next is made.
+8. ``[serve] starcoder2-15b``, ``[serve] nemotron-4-15b`` and ``[serve]
+   gemma3-12b``: each model at its published widths (40, 32 and 48
+   layers, d_model 6144, 6144 and 3840, d_ff 24576, 24576 and 15360,
+   vocab 49152, 256000 and 262144; 48 query heads over 4 and 8 KV heads,
+   16 over 8 at head_dim 256; gemma3's five local layers of window 1024
+   to one global, RMSNorm, tied embeddings), seeded random bf16 weights,
+   nothing cut, served with ``SERVE_ARGV``'s requests (gemma3's prompts
+   1536 tokens long, past its window: ``FAMILY_PROMPT_LEN``): both paths
+   eager and captured as in 4 (launches, no capture after warmup,
+   captured streams equal eager, the round against its bound), a
+   profiled captured block (device busy share), the teacher-forced check
+   of 5 and the fault probes of 6 at the model's bar
+   (``FAMILY_LOGIT_ATOL``), for gemma3 a third probe that drops every
+   layer's window; the phase's wall time; each model freed before the
+   next is made.
 9. Print the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
    line last.
 """
@@ -217,14 +228,24 @@ AIMC_SERVE_ARGV = ["--arch", "olmo-1b", "--requests", "4", "--prompt-len", "128"
 AIMC_ROUNDS = 8             # ResNet-50 NIU rounds (refresh + captured forward)
 PIPELINE_IMAGES = 4         # [pipeline] resnet: images, one microbatch each
 MULTI_PU = ["--multi-pu", "2"]   # [multi-pu] serve: two stages
+PROBE_STEPS = 1             # engine steps a fault probe serves: a prefill and a 32-round block
 # [serve] <arch>: the step 9 dense decoders served at their published
 # widths, and the teacher-forced bar of each, set as LOGIT_ATOL was.  On
 # an H100 the kernel path differed from the composed path by at most
 # 0.1719 (starcoder2-15b; probes 2.73 and 1.45) and 0.2554
 # (nemotron-4-15b, whose 256000 logits a step give the maximum more
 # entries; probes 6.58 and 4.47): 0.2 still sits between for starcoder2,
-# nemotron takes 0.35.
-FAMILY_LOGIT_ATOL = {"starcoder2-15b": LOGIT_ATOL, "nemotron-4-15b": 0.35}
+# nemotron takes 0.35.  gemma3-12b (48 layers, 262144 logits a step)
+# differed by at most 0.4844 (median 0.367; over the first block the
+# probes moved it by 8.56 and 5.53, and a third, every window dropped,
+# by 10.02): it takes 0.6.
+FAMILY_LOGIT_ATOL = {"starcoder2-15b": LOGIT_ATOL, "nemotron-4-15b": 0.35, "gemma3-12b": 0.6}
+# gemma3-12b's prompts: its local layers attend the last 1024 positions,
+# so only a context longer than that reaches their window
+FAMILY_PROMPT_LEN = {"gemma3-12b": 1536}
+# gemma3-12b's attention: 16 query heads over 8 (G = 2), head_dim 256, d_model
+# 3840, over its serve phase's cache (1536 + 64 + 8 slots), local window 1024
+GEMMA_HEADS, GEMMA_HD, GEMMA_D, GEMMA_SK, GEMMA_WINDOW = (16, 8), 256, 3840, 1608, 1024
 AIMC_REFRESHES = 5          # timed LM NIU refreshes; the median is kept
 SOURCES = {
     "fused_qkv": "src/repro_torch/kernels/csrc/decode.cu",
@@ -561,6 +582,8 @@ def kernel_phase(torch, timer, rates):
               f"bound_ms={r['launch1_bound_ms']} ({nb1 / t1 / 1e9} TB/s) grid {B * hkv} (lane, "
               f"kv-head) x {gplan.splits} chunks of {gplan.chunk} slots", flush=True)
     rows["fused_decode_attention"]["wide_groups"] = wide
+    rows["fused_decode_attention"]["head_dim_256"] = head_dim_256_attention(
+        torch, timer, rates, rnd, close)
 
     # --- fused_mlp -------------------------------------------------------------
     wu, wg, wd = rnd(D, FF, scale=0.02), rnd(D, FF, scale=0.02), rnd(FF, D, scale=0.02)
@@ -608,6 +631,101 @@ def kernel_phase(torch, timer, rates):
               f"graph_ms={r['graph_ms']} plain_ms={r['plain_ms']} library_ms={r['library_ms']} "
               f"bound_ms={r['bound_ms']} ({r['bound_by']})", flush=True)
     return rows
+
+
+def head_dim_256_attention(torch, timer, rates, rnd, close):
+    """gemma3-12b's attention (G = 2, hd 256, d 3840, B = 8, Sk 1608): the
+    kernel against its plain version in every mask case, the local
+    layers' window static, dynamic, starting mid-chunk in every lane and
+    on a chunk's first slot in some; equal bits on a second call; times
+    of a local layer's call (window 1024, the main path's 40 of 48
+    layers) and launch 1 alone at a local and a global layer."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode, ref
+
+    hq, hkv = GEMMA_HEADS
+    G, hd, d, sk = hq // hkv, GEMMA_HD, GEMMA_D, GEMMA_SK
+    dev = torch.device("cuda")
+    g = torch.Generator(device="cuda").manual_seed(24)
+    q, k, v = rnd(B, hq, hd), rnd(B, sk, hkv, hd), rnd(B, sk, hkv, hd)
+    wo, bo = rnd(hq * hd, d, scale=0.02), rnd(d, scale=0.02)
+    # the serve phase's decode positions: past the prompt's 1536 tokens
+    vlen = torch.tensor([1540 + 8 * i for i in range(B)], dtype=torch.int32, device=dev)
+    qpos = vlen - 1
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = decode.attn_plan(B, hkv, sk, hd, sms)
+    win = lambda w: torch.tensor(w, dtype=torch.int32, device=dev)  # noqa: E731
+    # first attended slot qpos - w + 1: mid-chunk in every lane at w = 1000;
+    # on a chunk's first slot in lanes 0 and 4 at w = 1028
+    mid, edge = 1000, 1540 - 16 * plan.chunk
+    firsts = lambda w: (qpos - w + 1).remainder(plan.chunk)  # noqa: E731
+    assert bool((firsts(mid) != 0).all()) and int((firsts(edge) == 0).sum()) == 2, plan
+    ring = torch.randint(-1, sk + 40, (B, sk), generator=g, device=dev, dtype=torch.int32)
+    cases = {
+        "full": dict(q_positions=torch.full((B,), sk - 1, dtype=torch.int32, device=dev)),
+        "valid_len": dict(q_positions=qpos, kv_valid_len=vlen),
+        "window_static": dict(q_positions=qpos, kv_valid_len=vlen, window=GEMMA_WINDOW),
+        "window_dynamic": dict(q_positions=qpos, kv_valid_len=vlen, window_arr=win(GEMMA_WINDOW)),
+        "window_mid_chunk": dict(q_positions=qpos, kv_valid_len=vlen, window_arr=win(mid)),
+        "window_chunk_edge": dict(q_positions=qpos, kv_valid_len=vlen, window_arr=win(edge)),
+        "ring_lane": dict(q_positions=qpos + 40, kv_positions=ring),
+        "ring_window": dict(q_positions=qpos + 40, kv_positions=ring, window_arr=win(GEMMA_WINDOW)),
+        "noncausal": dict(q_positions=qpos, kv_valid_len=vlen, causal=False),
+        "no_valid_slot": dict(q_positions=qpos, kv_valid_len=torch.cat([vlen[:1] * 0, vlen[1:]])),
+    }
+    err = 0.0
+    for name, ckw in cases.items():
+        for bias in (bo, None):
+            got = decode.fused_decode_attention(q, k, v, wo, bias, **ckw)
+            want = ref.decode_attention_ref(q, k, v, wo, bias, **ckw)
+            err = max(err, close(got, want, f"fused_decode_attention hd={hd} {name} "
+                                            f"bias={bias is not None}"))
+            again = decode.fused_decode_attention(q, k, v, wo, bias, **ckw)
+            assert torch.equal(got, again), f"fused_decode_attention hd={hd} {name}: two calls differ"
+    print(f"[kernel] fused_decode_attention hd={hd} G={G} ({hq} heads over {hkv}, d {d}, Sk {sk}): "
+          f"two calls give equal bits in all {len(cases)} mask cases, with and without bo; "
+          f"max_abs_err={err}", flush=True)
+    tkw = cases["window_dynamic"]
+
+    def need(kw):
+        """Slots the lanes may attend, and their K and V bytes."""
+        used = int(ref.decode_mask(B, sk, dev, **kw).sum().item())
+        return used, 2 * used * hkv * hd * k.element_size()
+
+    for name in ("window_dynamic", "valid_len"):
+        used, kvb = need(cases[name])
+        nb1 = nbytes(q, vlen, qpos) + kvb + 2 * B * hq * hd
+        t1 = timer(lambda n=name: decode._attention_ctx(q, k, v, **cases[n]))
+        print(f"[kernel] fused_decode_attention hd={hd} launch 1 (attn_kernel<{G}, {hd}>, {name}): "
+              f"kernel_ms={t1} bound_ms={bound(rates, nb1)[0]} ({nb1 / t1 / 1e9} TB/s of the {used} "
+              f"of {B * sk} slots the lanes may attend) grid {B * hkv} (lane, kv-head) x "
+              f"{plan.splits} chunks of {plan.chunk} slots", flush=True)
+    used, kvb = need(tkw)
+    t_bound, by = bound(rates, nbytes(q, wo, bo, vlen, qpos) + kvb + 2 * B * d,
+                        4 * used * hq * hd + 2 * B * hq * hd * d)
+    mask = ref.decode_mask(B, sk, dev, **tkw)[:, None, None, :]
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+
+    def library():
+        ctx = F.scaled_dot_product_attention(q[:, :, None], kt, vt, attn_mask=mask, enable_gqa=True)
+        return ctx.reshape(B, hq * hd) @ wo + bo
+
+    copies = [(k, v, wo)] + [tuple(t.clone() for t in (k, v, wo)) for _ in range(GRAPH_COPIES - 1)]
+    row = dict(
+        heads=hq, kv_heads=hkv, head_dim=hd, d_model=d, cache_slots=sk, window=GEMMA_WINDOW,
+        max_abs_err=err,
+        ms=timer(lambda: decode.fused_decode_attention(q, k, v, wo, bo, **tkw)),
+        graph_ms=graph_ms(torch, [lambda c=c: decode.fused_decode_attention(q, *c, bo, **tkw)
+                                  for c in copies] * GRAPH_PASSES),
+        plain_ms=timer(lambda: ref.decode_attention_ref(q, k, v, wo, bo, **tkw)),
+        library_ms=timer(library), bound_ms=t_bound, bound_by=by,
+    )
+    del copies
+    print(f"[kernel] fused_decode_attention hd={hd} G={G} (a local layer: window {GEMMA_WINDOW}): "
+          f"kernel_ms={row['ms']} graph_ms={row['graph_ms']} plain_ms={row['plain_ms']} "
+          f"library_ms={row['library_ms']} (SDPA + @ wo) bound_ms={t_bound} ({by})", flush=True)
+    return row
 
 
 def resnet_setup(torch):
@@ -1101,15 +1219,27 @@ def bf16_ulp(x: float) -> float:
     return 2.0 ** (math.floor(math.log2(abs(x))) - 7) if x else 2.0 ** -133
 
 
-def serve_engine(serve, kernels: bool, eager: bool = False, extra=(), arch="olmo-1b"):
+def serve_argv(arch: str) -> list:
+    """The serve phase's requests to ``arch``: ``SERVE_ARGV``'s, with the
+    arch's own prompt length where it has one (``FAMILY_PROMPT_LEN``)."""
+    argv = ["--arch", arch] + SERVE_ARGV[2:]
+    if arch in FAMILY_PROMPT_LEN:
+        argv[argv.index("--prompt-len") + 1] = str(FAMILY_PROMPT_LEN[arch])
+    return argv
+
+
+def serve_engine(serve, kernels: bool, eager: bool = False, extra=(), arch="olmo-1b",
+                 warm: bool = True):
     """The launcher's engine for the serve phase's requests to ``arch``
-    (``extra`` arguments after them), warmed up, with the requests queued;
-    its decode blocks replay CUDA graphs unless ``eager``."""
-    argv = ["--arch", arch] + SERVE_ARGV[2:] + (["--decode-kernels"] if kernels else []) + list(extra)
+    (``extra`` arguments after them), warmed up unless not ``warm``, with
+    the requests queued; its decode blocks replay CUDA graphs unless
+    ``eager``."""
+    argv = serve_argv(arch) + (["--decode-kernels"] if kernels else []) + list(extra)
     gc.collect()        # an engine left in a reference cycle still holds its weights
     args = serve.build_parser().parse_args(argv)
     engine = serve.make_engine(args, eager=eager)
-    engine.warmup()
+    if warm:
+        engine.warmup()
     serve.submit_requests(engine, args)
     return engine
 
@@ -1162,6 +1292,7 @@ def serve_runs(torch, rates, arch="olmo-1b"):
     greedy streams, equal between eager and captured; the captured kernel
     round against its bound."""
     from repro_torch.launch import serve
+    from repro_torch.models import transformer
 
     pre = "" if arch == "olmo-1b" else f"{arch} "
     runs = {}
@@ -1193,6 +1324,14 @@ def serve_runs(torch, rates, arch="olmo-1b"):
                 print(f"[serve] {pre}round bound {bound_s * 1e3} ms (weights {wb} B + KV cache {kvb} B "
                       f"at {rates['bytes']} B/s); kernel-path round / bound = "
                       f"{st['mean_decode_round_s'] / bound_s}", flush=True)
+                if cfg.window:
+                    # a local layer attends at most its window of the cache
+                    slots = engine.serve_cfg.max_len
+                    kv_win = kvb * sum(min(w, slots) for w in transformer.window_list(cfg)) / (
+                        cfg.n_layers * slots)
+                    print(f"[serve] {pre}of the KV cache the layers' windows let a round read at "
+                          f"most {kv_win} B: bound {(wb + kv_win) / rates['bytes'] * 1e3} ms",
+                          flush=True)
             if not eager:
                 scratch_left_zero(torch, engine._graphs.values(), f"the {label} run's replays")
             runs[label] = dict(streams=streams, launches=launches, ttft_s=st["mean_ttft_s"],
@@ -1450,10 +1589,13 @@ def plan_paper_phase():
     resnet_paper.main(["--variant", str(RESNET), "--plan-only"])
 
 
-def logged_run(torch, kernels: bool, feed=None, extra=(), arch="olmo-1b"):
+def logged_run(torch, kernels: bool, feed=None, extra=(), arch="olmo-1b", steps=None):
     """An untimed, eager run of the serve phase's requests (``extra``
-    launcher arguments after them) that keeps every round's logits on the
-    card; returns (streams, rounds, M).  With ``feed`` (uid -> stream)
+    launcher arguments after them; all of them, or the first ``steps``
+    engine steps) that keeps every round's logits on the card; returns
+    (streams, rounds, M).  Being eager and untimed, a single-PU run skips
+    the warmup, which changes nothing served (it scatters no row); a
+    staged engine's warmup also sets up its runner, and is kept.  With ``feed`` (uid -> stream)
     each active lane is fed that stream's tokens in place of its own
     samples, so the run scores exactly the prefixes ``feed`` scored
     (teacher forcing); the run's own samples still land in its streams.
@@ -1464,7 +1606,9 @@ def logged_run(torch, kernels: bool, feed=None, extra=(), arch="olmo-1b"):
     its offset there) and feeds the group's next input."""
     from repro_torch.launch import serve
 
-    engine = serve_engine(serve, kernels, eager=True, extra=extra, arch=arch)  # the hook runs every round
+    # eager: the hook runs every round
+    engine = serve_engine(serve, kernels, eager=True, extra=extra, arch=arch,
+                          warm="--multi-pu" in extra)
     state, lanes, B = engine._state, engine._lanes, len(engine._slots)
     table = torch.zeros_like(state["out_buf"])
     loaded = [None] * B
@@ -1514,7 +1658,11 @@ def logged_run(torch, kernels: bool, feed=None, extra=(), arch="olmo-1b"):
     else:
         assert engine._staged.n_groups > 1, "M = 1 rounds run no lane-group transition"
         inner, engine._staged._postdecode = engine._staged._postdecode, postdecode
-    engine.run_until_drained()
+    if steps is None:
+        engine.run_until_drained()
+    else:
+        for _ in range(steps):
+            engine.step()
     assert not pending, "a round's lane groups did not all arrive"
     streams = {r.uid: r.out_tokens for r in engine.completed}
     m = 1 if engine._staged is None else engine._staged.n_groups
@@ -1588,10 +1736,15 @@ def forced_phase(torch, runs, arch="olmo-1b", bar=LOGIT_ATOL):
 def fault_phase(torch, want_streams, want_rounds, arch="olmo-1b", bar=LOGIT_ATOL):
     """Run the teacher-forced comparison with a fault put into the kernel
     path's wiring (not into the kernels, which the kernel phase holds):
-    each must move the logits past ``bar``, or the check is blind to it."""
-    from repro_torch.kernels import dispatch
+    each must move the logits past ``bar``, or the check is blind to it.
+    A probe serves the first ``PROBE_STEPS`` engine steps (the first
+    wave's prefill and decode block) and is held to the same steps of the
+    checked run."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import common, dispatch, ref
 
     qkv, attn = dispatch.decode_qkv, dispatch.decode_attention
+    no_window = common.device_int(ref.BIG_WINDOW, "window", torch.device("cuda", 0))
 
     def rope_late(cfg, p, x, positions, *, rope):
         return qkv(cfg, p, x, positions + 1, rope=rope)
@@ -1599,15 +1752,21 @@ def fault_phase(torch, want_streams, want_rounds, arch="olmo-1b", bar=LOGIT_ATOL
     def own_token_dropped(cfg, p, q, k, v, *, kv_valid_len, **kw):
         return attn(cfg, p, q, k, v, kv_valid_len=kv_valid_len - 1, **kw)
 
-    for name, fn, patch in (("rope one position late", rope_late, "decode_qkv"),
-                            ("current token left out of attention", own_token_dropped,
-                             "decode_attention")):
+    def windows_dropped(cfg, p, q, k, v, *, window_arr, **kw):
+        return attn(cfg, p, q, k, v, window_arr=no_window, **kw)
+
+    probes = [("rope one position late", rope_late, "decode_qkv"),
+              ("current token left out of attention", own_token_dropped, "decode_attention")]
+    if get_config(arch).window:
+        probes.append(("every layer's window BIG_WINDOW", windows_dropped, "decode_attention"))
+    for name, fn, patch in probes:
         setattr(dispatch, patch, fn)
         try:
-            _, rounds, _ = logged_run(torch, kernels=True, feed=want_streams, arch=arch)
+            _, rounds, _ = logged_run(torch, kernels=True, feed=want_streams, arch=arch,
+                                      steps=PROBE_STEPS)
         finally:
             dispatch.decode_qkv, dispatch.decode_attention = qkv, attn
-        diffs, flips = compare_rounds(torch, want_rounds, rounds)
+        diffs, flips = compare_rounds(torch, want_rounds[:len(rounds)], rounds)
         d = sorted(diffs.values())
         pre = "" if arch == "olmo-1b" else f"{arch} "
         print(f"[fault] {pre}{name}: max |diff| {d[-1]}, median {statistics.median(d)}, "
@@ -1617,25 +1776,36 @@ def fault_phase(torch, want_streams, want_rounds, arch="olmo-1b", bar=LOGIT_ATOL
         torch.cuda.empty_cache()
 
 
-def family_phase(torch, rates, arch: str):
+def family_phase(torch, rates, arch: str) -> dict:
     """``[serve] <arch>``: a dense decoder of step 9 at its published
     widths with seeded random bf16 weights, nothing cut, served with the
-    olmo-1b phase's requests: both paths eager and captured
+    olmo-1b phase's requests (gemma3-12b's prompts 1536 tokens long,
+    ``FAMILY_PROMPT_LEN``): both paths eager and captured
     (``serve_runs``), a profiled captured block, the kernel path
     teacher-forced to the composed path within the arch's bar, and the
-    two fault probes above it."""
+    fault probes above it (a windowed model's includes every window
+    dropped).  Returns the captured kernel run's launches."""
+    t0 = time.perf_counter()
     bar = FAMILY_LOGIT_ATOL[arch]
     runs = serve_runs(torch, rates, arch)
+    walls = [time.perf_counter()]
     prof = profile_phase(torch, runs, arch, modes=(False,))[f"{arch} captured"]
+    walls.append(time.perf_counter())
     want_streams, want_rounds = forced_phase(torch, runs, arch, bar)
+    walls.append(time.perf_counter())
     fault_phase(torch, want_streams, want_rounds, arch, bar)
     del want_rounds
     free(torch)
+    walls.append(time.perf_counter())
+    print(f"[serve] {arch}: wall s of the timed runs, profile, teacher-forced runs, probes: "
+          f"{[b - a for a, b in zip([t0] + walls, walls)]}", flush=True)
     k = runs["kernels"]
     print(f"[serve] {arch}: captured kernel path {k['round_s'] * 1e3} ms a round, "
           f"{k['tokens_per_s']} tokens/s, mean TTFT {k['ttft_s']} s, device busy share of a "
           f"captured block {prof['busy_ms'] / prof['window_ms']} (composed path captured "
-          f"{runs['composed']['round_s'] * 1e3} ms); teacher-forced bar {bar}", flush=True)
+          f"{runs['composed']['round_s'] * 1e3} ms); teacher-forced bar {bar}; phase wall "
+          f"{time.perf_counter() - t0} s", flush=True)
+    return k["launches"]
 
 
 def kernel_name(name: str) -> str:
@@ -1671,7 +1841,12 @@ def decode_block_profile(torch, eager: bool, arch="olmo-1b"):
     wave's prefill and a 32-round decode block, replayed from its CUDA
     graph unless ``eager``): (rounds, window us, device-busy us, {device
     op: us}, {device op: launches}, the wrappers' launch counts) of the
-    block."""
+    block.  The launches are counted over the whole step: the prefill
+    (composed) launches none of the decode kernels, and the host span's
+    edges, against which the device times are placed, can be off by
+    milliseconds (on an H100 the profiler once left nine layers' kernels
+    of a captured starcoder2-15b block outside it); those inside it are
+    counted apart."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from repro_torch.kernels import decode
@@ -1697,11 +1872,13 @@ def decode_block_profile(torch, eager: bool, arch="olmo-1b"):
     cuda = torch.autograd.DeviceType.CUDA
     (w0, w1), = [(e.time_range.start, e.time_range.end) for e in prof.events()
                  if e.name == "decode_block" and e.device_type != cuda]
-    calls = {}
+    calls, inside = {}, {}
     for e in prof.events():
-        if e.device_type == cuda and w0 <= e.time_range.start < w1:
+        if e.device_type == cuda:
             calls[e.name] = calls.get(e.name, 0) + 1
-    return rounds, window, busy, by_name, calls, launches
+            if w0 <= e.time_range.start < w1:
+                inside[e.name] = inside.get(e.name, 0) + 1
+    return rounds, window, busy, by_name, calls, inside, launches
 
 
 def profile_phase(torch, runs, arch="olmo-1b", modes=(True, False)):
@@ -1717,7 +1894,8 @@ def profile_phase(torch, runs, arch="olmo-1b", modes=(True, False)):
     for eager in modes:
         label = pre + ("eager" if eager else "captured")
         round_s = runs["kernels_eager" if eager else "kernels"]["round_s"]
-        rounds, window, busy, by_name, calls, launches = decode_block_profile(torch, eager, arch)
+        rounds, window, busy, by_name, calls, inside, launches = decode_block_profile(
+            torch, eager, arch)
         window_ms, busy_ms = window / 1e3 / rounds, busy / 1e3 / rounds
         tag = "[profile]" if eager else "[graph] profile"
         print(f"{tag} {label}: {rounds} rounds traced: block {window_ms} ms a round, device "
@@ -1727,16 +1905,17 @@ def profile_phase(torch, runs, arch="olmo-1b", modes=(True, False)):
         for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
             print(f"{tag}   {us / 1e3 / rounds} ms a round  {name[:110]}", flush=True)
 
-        def seen(kernel):
-            return sum(n for name, n in calls.items() if kernel_name(name) == kernel)
+        def seen(kernel, counts):
+            return sum(n for name, n in counts.items() if kernel_name(name) == kernel)
 
         want = dict(qkv_gemv_kernel=launches["fused_qkv"],
                     attn_kernel=launches["fused_decode_attention"],
                     gemv_kernel=launches["fused_decode_attention"] + 2 * launches["fused_mlp"])
-        got = {k: seen(k) for k in want}
+        got = {k: seen(k, calls) for k in want}
         print(f"{tag} {label}: launches counted by the wrappers {launches} -> kernels expected "
-              f"{want}, seen by the profiler {got}; device ops in the block "
-              f"{sum(calls.values())}", flush=True)
+              f"{want}, seen by the profiler {got} (inside the block's host span "
+              f"{ {k: seen(k, inside) for k in want} }); device ops in the block's host span "
+              f"{sum(inside.values())}", flush=True)
         assert launches["fused_qkv"] == n_layers * rounds and got == want, (launches, want, got)
         out[label] = dict(busy_ms=busy_ms, window_ms=window_ms)
     return out
@@ -1976,7 +2155,7 @@ def main() -> int:
     for (g, hd), (n, st, ld) in sorted(regs.items()):
         print(f"[build] attn_kernel<{g}, {hd}>: {n} registers, {st} bytes spill stores, {ld} bytes "
               f"spill loads", flush=True)
-    assert {(g, hd) for g in (1, 2, 4, 6, 8, 12) for hd in (32, 64, 128)} <= set(regs), regs
+    assert {(g, hd) for g in (1, 2, 4, 6, 8, 12) for hd in (32, 64, 128, 256)} <= set(regs), regs
 
     rates = card_rates(name)
     timer = Timer(torch, TIMED_CALLS)
@@ -2006,8 +2185,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     profile_phase(torch, runs)
     free(torch)
-    for arch in FAMILY_LOGIT_ATOL:
-        family_phase(torch, rates, arch)
+    family_launches = {arch: family_phase(torch, rates, arch) for arch in FAMILY_LOGIT_ATOL}
+    rows["fused_decode_attention"]["head_dim_256"]["launches"] = \
+        family_launches["gemma3-12b"]["fused_decode_attention"]
     # each kernel's launches on its main path: the captured serve run, the
     # captured ResNet-50 forward, the AIMC rounds
     launches = {**runs["kernels"]["launches"], "niu_refresh": aimc["launches"]["niu_refresh"],

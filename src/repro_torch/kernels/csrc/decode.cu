@@ -172,6 +172,10 @@ attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
             int Sk, int Hkv, int C, float* __restrict__ ws, int* __restrict__ counters) {
   constexpr int LPS = HD / 8;            // lanes per slot (16 bytes of a row each)
   constexpr int RPW = 32 / LPS;          // slots a warp covers per step
+  // At HD 256 a slot fills the warp (LPS 32, RPW 1): the score shuffles
+  // sum all 32 lanes, the PV shuffle loop below runs no step, and every
+  // lane writes its own 8 dims of the warp's sum.
+  static_assert(LPS >= 4 && LPS <= 32 && 32 % LPS == 0, "hd must be 32, 64, 128 or 256");
   constexpr int PART = G * (HD + 2);     // floats of a partial: m[G], l[G], acc[G][HD]
   extern __shared__ __align__(16) uint8_t at_smem[];
   __shared__ uint8_t ok[kAtMaxSlots];
@@ -799,7 +803,8 @@ int repro_gemv(const void* x, const void* w0, const void* w1, const void* bias, 
 
 // ctx (B, Hq*hd) <- single-token GQA of q (B, Hq, hd) over k/v (B, Sk, Hkv, hd),
 // G = Hq/Hkv in 1, 2, 4, 6, 8, 12 (decode.py ATTN_GROUPS: nemotron-4-15b has
-// 6, starcoder2-15b 12) and hd in 32, 64, 128; qr[G][8] and acc[G][8] are
+// 6, starcoder2-15b 12) and hd in 32, 64, 128, 256 (decode.py ATTN_HEAD_DIMS:
+// gemma3-12b has 256, where a slot takes a whole warp); qr[G][8] and acc[G][8] are
 // never live together, so G = 12 keeps them in registers (chip_smoke.py
 // prints each instantiation's registers and spills from the ptxas report),
 // in `splits` chunks of `chunk` slots (decode.py::attn_plan); ws holds
@@ -831,12 +836,12 @@ int repro_decode_attention(const void* q, const void* k, const void* v, const vo
         (int*)counters);                                                               \
     return (int)cudaGetLastError();                                                    \
   }
-  REPRO_ATTN(1, 32) REPRO_ATTN(1, 64) REPRO_ATTN(1, 128)
-  REPRO_ATTN(2, 32) REPRO_ATTN(2, 64) REPRO_ATTN(2, 128)
-  REPRO_ATTN(4, 32) REPRO_ATTN(4, 64) REPRO_ATTN(4, 128)
-  REPRO_ATTN(8, 32) REPRO_ATTN(8, 64) REPRO_ATTN(8, 128)
-  REPRO_ATTN(6, 32) REPRO_ATTN(6, 64) REPRO_ATTN(6, 128)
-  REPRO_ATTN(12, 32) REPRO_ATTN(12, 64) REPRO_ATTN(12, 128)
+  REPRO_ATTN(1, 32) REPRO_ATTN(1, 64) REPRO_ATTN(1, 128) REPRO_ATTN(1, 256)
+  REPRO_ATTN(2, 32) REPRO_ATTN(2, 64) REPRO_ATTN(2, 128) REPRO_ATTN(2, 256)
+  REPRO_ATTN(4, 32) REPRO_ATTN(4, 64) REPRO_ATTN(4, 128) REPRO_ATTN(4, 256)
+  REPRO_ATTN(8, 32) REPRO_ATTN(8, 64) REPRO_ATTN(8, 128) REPRO_ATTN(8, 256)
+  REPRO_ATTN(6, 32) REPRO_ATTN(6, 64) REPRO_ATTN(6, 128) REPRO_ATTN(6, 256)
+  REPRO_ATTN(12, 32) REPRO_ATTN(12, 64) REPRO_ATTN(12, 128) REPRO_ATTN(12, 256)
 #undef REPRO_ATTN
   return (int)cudaErrorInvalidValue;
 }

@@ -162,6 +162,7 @@ ATTN_MAX_SLOTS = 256        # slots a chunk may hold (kAtMaxSlots)
 ATTN_SLOTS = 16             # a chunk's slots are a multiple of this
 ATTN_BLOCKS_PER_SM = 12     # blocks the split aims at for every SM
 ATTN_GROUPS = (1, 2, 4, 6, 8, 12)   # query heads per KV head the kernel takes (csrc/decode.cu)
+ATTN_HEAD_DIMS = (32, 64, 128, 256)  # head dims the kernel takes (csrc/decode.cu)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -334,7 +335,7 @@ def _attention_ctx(q, k, v, *, q_positions, kv_valid_len=None, window=None, wind
     sk, hkv = k.shape[1], k.shape[2]
     dev = q.device
     _check_batch(b, hq * hd)
-    if hkv <= 0 or hq % hkv or hq // hkv not in ATTN_GROUPS or hd not in (32, 64, 128):
+    if hkv <= 0 or hq % hkv or hq // hkv not in ATTN_GROUPS or hd not in ATTN_HEAD_DIMS:
         raise ValueError(f"(Hq={hq}, Hkv={hkv}, hd={hd}) is not supported by the kernel")
     _check("q", q, (b, hq, hd), dev)
     _check("k", k, (b, sk, hkv, hd), dev)

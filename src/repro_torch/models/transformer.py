@@ -5,6 +5,11 @@ Parameters keep the JAX package's layout: ``(in, out)`` weight matrices
 and the layers stacked on axis 0 of each leaf, so converted reference
 parameters and the port's own seeded init are interchangeable.
 
+Attention windows follow the reference's schedules (sliding window, and
+gemma3's local:global layers): :func:`layer_windows` gives each layer
+its window, and every path, prefill and decode, composed and kernels,
+masks with it.
+
 Unlike the reference, the decode path updates the KV cache *in place*:
 the cache tensors given to :func:`decode_step` / :func:`decode_stage` are
 written and returned, so the serving engine's preallocated buffers are
@@ -15,7 +20,7 @@ naming the ROADMAP step that ports them (:func:`check_supported`).
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -34,7 +39,6 @@ _LATER = (
     (lambda c: c.is_moe, "mixture-of-experts MLPs", 12),
     (lambda c: c.kv_quant, "kv_quant", 9),
     (lambda c: c.kv_ring, "kv_ring", 9),
-    (lambda c: bool(c.window or c.global_every), "window/global_every attention", 9),
     (lambda c: c.pos_embed != "rope", "{pos_embed} positions", 9),
 )
 
@@ -121,9 +125,40 @@ def _params_device(params: dict) -> torch.device:
     return params["embed"].device
 
 
+def window_list(cfg: ModelConfig) -> Tuple[int, ...]:
+    """Per-layer effective attention window, as the reference's
+    ``layer_windows``: with ``global_every``, layer ``i`` is global
+    (``BIG_WINDOW``) when ``(i + 1) % global_every == 0`` and local
+    (``window``) otherwise; a pure ``window`` config gives every layer
+    ``window``; no window, ``BIG_WINDOW`` everywhere."""
+    if cfg.global_every:
+        local = cfg.window or BIG_WINDOW
+        return tuple(BIG_WINDOW if (i + 1) % cfg.global_every == 0 else local
+                     for i in range(cfg.n_layers))
+    return (cfg.window or BIG_WINDOW,) * cfg.n_layers
+
+
+# The windows as int32 device tensors, one per (windows, device), made once.
+_WINDOWS: Dict[Tuple[Tuple[int, ...], torch.device], torch.Tensor] = {}
+
+
 def layer_windows(cfg: ModelConfig, device=None) -> torch.Tensor:
-    """Per-layer effective attention window (int32, one per layer)."""
-    return torch.full((cfg.n_layers,), BIG_WINDOW, dtype=torch.int32, device=device)
+    """:func:`window_list` as an int32 tensor on ``device``, made once
+    (before any capture: a CUDA graph then reads it as a static tensor),
+    so no decode step copies it from the host."""
+    device = torch.device("cpu") if device is None else resolve_device(device)
+    key = (window_list(cfg), device)
+    t = _WINDOWS.get(key)
+    if t is None:
+        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("the layer windows are first needed while a CUDA graph is "
+                               "captured; run the step once before capturing it")
+        t = torch.tensor(key[0], dtype=torch.int32, device=device)
+        if device.type == "cuda":
+            # made on this thread's stream, read from any stream
+            torch.cuda.current_stream(device).synchronize()
+        _WINDOWS[key] = t
+    return t
 
 
 def _layer_slice(tree, i):

@@ -7,7 +7,7 @@ machine with an H100 with
 
 They cover what ``chip_smoke.py`` (olmo-1b and ResNet-50 shapes only)
 does not.  Decode kernels: other batch sizes, grouped-query heads
-(G = Hq/Hkv > 1), head widths 32 and 64, every activation, and the smoke
+(G = Hq/Hkv > 1), head widths 32, 64 and 256, every activation, and the smoke
 engine on the card; tolerance atol = rtol = 2e-2 in bf16, as in
 ``chip_smoke.py``.  PU kernels: ``int8_gemm`` with N, M and P that are
 multiples of no tile and shifts -8..31, ``im2col`` with C = 1 and 2 and
@@ -39,7 +39,7 @@ from repro_torch.runtime.serving import ServeConfig, ServingEngine  # noqa: E402
 kgemm = importlib.import_module("repro_torch.kernels.int8_gemm")
 pytestmark = pytest.mark.cuda
 TOL = dict(atol=2e-2, rtol=2e-2)
-HEADS = [(4, 2, 32), (8, 2, 64), (8, 8, 128), (16, 2, 128)]   # (Hq, Hkv, hd)
+HEADS = [(4, 2, 32), (8, 2, 64), (8, 8, 128), (16, 2, 128), (16, 8, 256)]   # (Hq, Hkv, hd)
 
 
 @pytest.fixture
@@ -177,7 +177,7 @@ def test_smoke_engine_on_card(gen):
 
 # ------------------------------------- the split attention and the QKV GEMV --
 
-QKV_HEADS = HEADS + [(16, 8, 256), (2, 1, 256), (6, 2, 16), (3, 1, 64)]
+QKV_HEADS = HEADS + [(2, 1, 256), (6, 2, 16), (3, 1, 64)]
 
 
 @pytest.mark.parametrize("b", [1, 5, 8])
