@@ -26,7 +26,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    cache (Sk 1608): every mask case with its local window of 1024 static
    and dynamic, a window starting mid-chunk in every lane and one on a
    chunk's first slot, equal bits twice, the same times at a local
-   layer, launch 1 alone at a local and a global layer; after the build,
+   layer, launch 1 alone at a local and a global layer; and at
+   mixtral-8x7b's (32 heads over 8, G = 4, d 4096) over its ring's 4096
+   slots with the positions its decode computes
+   (``transformer.ring_positions``): past the wrap, before it, shared by
+   every lane and with no window, equal bits twice, the same times, SDPA
+   with the ring mask + ``@ wo``, launch 1 alone; with its QKV GEMV
+   (RoPE theta 1e6 at the ring's decode positions, with and without
+   bias) and SwiGLU MLP (4096 x 14336 and back, with and without bias)
+   at the same widths, each against its plain version, equal bits twice,
+   the same times; after the build,
    the registers and spill bytes of every ``attn_kernel`` instantiation
    (hd 32 to 256) from the ptxas report.
 2a. PU kernel phase, on a seeded full-width ResNet-50 (224x224x3 int8
@@ -187,6 +196,29 @@ Phases, in order; any failure raises and the script exits non-zero:
    (``FAMILY_LOGIT_ATOL``), for gemma3 a third probe that drops every
    layer's window; the phase's wall time; each model freed before the
    next is made.
+8a. ``[serve] mixtral-8x7b-ring``: the reference's ring construction
+   (``dataclasses.replace(mixtral-8x7b, n_experts=0, top_k=0,
+   kv_ring=True)``) at its published widths (32 layers, d_model 4096, 32
+   heads over 8, d_ff 14336 SwiGLU, RMSNorm, vocab 32000 untied, window
+   4096), seeded random bf16 weights, nothing cut; 16 requests of 64 new
+   tokens on 8 slots, prompts alternating 4064 and 4160 tokens
+   (``RING_PROMPTS``: below the window, the decode wrapping the ring at
+   round 33; past it, through the prefill's re-layout), each wave two
+   exact-length prefill calls of 4 lanes.  (a) both paths eager and
+   captured as in 4, and a profiled captured block; (b) the
+   teacher-forced check of 5 within ``RING_LOGIT_ATOL``; (c) the same
+   model with a full cache (``RING_FULL``: max_len slots, the window mask
+   alone) teacher-forced on the same tokens on the kernel path over the
+   first wave (``RING_FULL_STEPS``, past both lengths' wraps), within
+   ``RING_LOGIT_ATOL`` of the ring; each run's distance over the first
+   engine step to the same weights served in float32 on those tokens
+   (each bf16 path within the bar); (d) the fault probes above the bar: RoPE one position
+   late, the ring's positions linear (each slot's index); (e)
+   ``--multi-pu 2`` on the shared card (M = 1, captured): the single-PU
+   captured kernel run's streams.  The round against its
+   bound, tokens/s, TTFT, the busy share, the attention's in-situ µs a
+   layer and the ring's cache bytes against a full cache's, beside the
+   card's name and power limit; the phase's wall time.
 9. Print the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
    line last.
 """
@@ -243,6 +275,37 @@ FAMILY_LOGIT_ATOL = {"starcoder2-15b": LOGIT_ATOL, "nemotron-4-15b": 0.35, "gemm
 # gemma3-12b's prompts: its local layers attend the last 1024 positions,
 # so only a context longer than that reaches their window
 FAMILY_PROMPT_LEN = {"gemma3-12b": 1536}
+# [serve] mixtral-8x7b-ring: the reference's own ring construction
+# (tests/test_kv_ring.py builds it at smoke size) at full width:
+# mixtral-8x7b's dense widths (32 layers, d_model 4096, 32 heads over 8,
+# d_ff 14336, vocab 32000) with its 4096-token window and a ring KV cache
+# of 4096 slots; "-full" is the same model with a max_len-slot cache,
+# masked by the window alone, against which the ring is held.
+VARIANTS = {
+    "mixtral-8x7b-ring": ("mixtral-8x7b", dict(n_experts=0, top_k=0, kv_ring=True)),
+    "mixtral-8x7b-full": ("mixtral-8x7b", dict(n_experts=0, top_k=0)),
+}
+RING, RING_FULL = VARIANTS
+# its prompts alternate below and past the window: a 4064-token prompt
+# prefills under it and its decode wraps the ring at round 33; a 4160-token
+# one goes through the prefill's re-layout, which drops 64 positions
+RING_PROMPTS = (4064, 4160)
+# Its teacher-forced bar.  On an H100 the kernel path differed from the
+# composed path by at most 0.3730 (median 0.2656) and the ring from a full
+# cache by 0.3184 (kernels on both), past 0.2; served in float32 on the
+# same tokens, the same weights sat 0.5284 from the composed path and
+# 0.4832 from the kernel path: the kernel path is the nearer, so its gap
+# is rounding, which in this model reaches the composed path's own
+# distance to float32.  The bar sits there; the probes read 6.41 and 8.33.
+# The phase checks each path's float32 distance over the first step.
+RING_LOGIT_ATOL = 0.55
+# engine steps the full-cache run serves: the first wave's prefill and its
+# decode blocks, past the 4064-token lanes' wrap at round 33
+RING_FULL_STEPS = 2
+FAMILY_PROMPT_LEN.update({v: max(RING_PROMPTS) for v in VARIANTS})
+# its attention in the kernel phase: 32 query heads over 8 (G = 4), hd 128,
+# d_model 4096, the ring's 4096 slots, at round 40 of a wave (past the wrap)
+RING_HEADS, RING_D, RING_SK, RING_ROUND = (32, 8), 4096, 4096, 40
 # gemma3-12b's attention: 16 query heads over 8 (G = 2), head_dim 256, d_model
 # 3840, over its serve phase's cache (1536 + 64 + 8 slots), local window 1024
 GEMMA_HEADS, GEMMA_HD, GEMMA_D, GEMMA_SK, GEMMA_WINDOW = (16, 8), 256, 3840, 1608, 1024
@@ -584,6 +647,7 @@ def kernel_phase(torch, timer, rates):
     rows["fused_decode_attention"]["wide_groups"] = wide
     rows["fused_decode_attention"]["head_dim_256"] = head_dim_256_attention(
         torch, timer, rates, rnd, close)
+    rows["fused_decode_attention"]["ring"] = ring_attention(torch, timer, rates, rnd, close)
 
     # --- fused_mlp -------------------------------------------------------------
     wu, wg, wd = rnd(D, FF, scale=0.02), rnd(D, FF, scale=0.02), rnd(FF, D, scale=0.02)
@@ -626,6 +690,8 @@ def kernel_phase(torch, timer, rates):
         library_ms=timer(lambda: (F.silu(x @ wg) * (x @ wu)) @ wd),
         bound_ms=t_bound, bound_by=by,
     )
+    rows["fused_qkv"]["ring"], rows["fused_mlp"]["ring"] = ring_projections(
+        torch, timer, rates, rnd, close)
     for name, r in rows.items():
         print(f"[kernel] {name}: max_abs_err={r['max_abs_err']} kernel_ms={r['ms']} "
               f"graph_ms={r['graph_ms']} plain_ms={r['plain_ms']} library_ms={r['library_ms']} "
@@ -726,6 +792,184 @@ def head_dim_256_attention(torch, timer, rates, rnd, close):
           f"kernel_ms={row['ms']} graph_ms={row['graph_ms']} plain_ms={row['plain_ms']} "
           f"library_ms={row['library_ms']} (SDPA + @ wo) bound_ms={t_bound} ({by})", flush=True)
     return row
+
+
+def ring_attention(torch, timer, rates, rnd, close):
+    """mixtral-8x7b-ring's attention (G = 4, hd 128, d 4096, B = 8, the
+    ring's 4096 slots) with the slot positions its decode computes
+    (``transformer.ring_positions``): the serve path's arguments (valid
+    length, the layer's window, the positions) with the lanes at round
+    ``RING_ROUND`` of a wave (past the 4064-token lanes' wrap) and at its
+    first round (their slots past the query never written), positions
+    shared by every lane, and no window; each against the plain version,
+    equal bits on a second call; times of the path's call past the wrap
+    and of launch 1 alone."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode, ref
+    from repro_torch.models import transformer
+
+    hq, hkv = RING_HEADS
+    G, hd, d, sk = hq // hkv, HD, RING_D, RING_SK
+    q, k, v = rnd(B, hq, hd), rnd(B, sk, hkv, hd), rnd(B, sk, hkv, hd)
+    dev = q.device
+    wo, bo = rnd(hq * hd, d, scale=0.02), rnd(d, scale=0.02)
+    win = torch.tensor(RING_SK, dtype=torch.int32, device=dev)     # every layer's window
+
+    def at(r):
+        """The lanes' decode positions at round r of a wave."""
+        return torch.tensor([RING_PROMPTS[i % 2] + r - 1 for i in range(B)], dtype=torch.int32,
+                            device=dev)
+
+    def path(pos):
+        return dict(q_positions=pos, kv_valid_len=pos + 1, window_arr=win,
+                    kv_positions=transformer.ring_positions(pos, sk))
+
+    after = at(RING_ROUND)
+    cases = {
+        "path_past_wrap": path(after),
+        "path_first_round": path(at(1)),
+        "shared_positions": dict(q_positions=after[:1].expand(B).contiguous(), window_arr=win,
+                                 kv_positions=transformer.ring_positions(after[0], sk)),
+        "no_window": dict(q_positions=after, kv_positions=transformer.ring_positions(after, sk)),
+    }
+    err = 0.0
+    for name, ckw in cases.items():
+        for bias in (bo, None):
+            got = decode.fused_decode_attention(q, k, v, wo, bias, **ckw)
+            want = ref.decode_attention_ref(q, k, v, wo, bias, **ckw)
+            err = max(err, close(got, want, f"fused_decode_attention ring G={G} {name} "
+                                            f"bias={bias is not None}"))
+            again = decode.fused_decode_attention(q, k, v, wo, bias, **ckw)
+            assert torch.equal(got, again), f"fused_decode_attention ring {name}: two calls differ"
+    tkw = cases["path_past_wrap"]
+    used = int(ref.decode_mask(B, sk, dev, **tkw).sum().item())
+    kv_bytes = 2 * used * hkv * hd * k.element_size()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = decode.attn_plan(B, hkv, sk, hd, sms)
+    nb1 = nbytes(q, after, tkw["kv_positions"]) + kv_bytes + 2 * B * hq * hd
+    t1 = timer(lambda: decode._attention_ctx(q, k, v, **tkw))
+    t_bound, by = bound(rates, nbytes(q, wo, after, tkw["kv_positions"]) + kv_bytes + 2 * B * d,
+                        4 * used * hq * hd + 2 * B * hq * hd * d)
+    mask = ref.decode_mask(B, sk, dev, **tkw)[:, None, None, :]
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+
+    def library():
+        ctx = F.scaled_dot_product_attention(q[:, :, None], kt, vt, attn_mask=mask, enable_gqa=True)
+        return ctx.reshape(B, hq * hd) @ wo
+
+    copies = [(k, v, wo)] + [tuple(t.clone() for t in (k, v, wo)) for _ in range(GRAPH_COPIES - 1)]
+    row = dict(
+        heads=hq, kv_heads=hkv, head_dim=hd, d_model=d, cache_slots=sk, max_abs_err=err,
+        ms=timer(lambda: decode.fused_decode_attention(q, k, v, wo, None, **tkw)),
+        graph_ms=graph_ms(torch, [lambda c=c: decode.fused_decode_attention(q, *c, None, **tkw)
+                                  for c in copies] * GRAPH_PASSES),
+        plain_ms=timer(lambda: ref.decode_attention_ref(q, k, v, wo, None, **tkw)),
+        library_ms=timer(library), bound_ms=t_bound, bound_by=by,
+        launch1_ms=t1, launch1_bound_ms=bound(rates, nb1)[0],
+    )
+    del copies
+    print(f"[kernel] fused_decode_attention ring G={G} ({hq} heads over {hkv}, hd {hd}, d {d}, "
+          f"{sk} ring slots, positions from transformer.ring_positions): two calls give equal bits "
+          f"in all {len(cases)} cases, with and without bo; max_abs_err={err} kernel_ms={row['ms']} "
+          f"graph_ms={row['graph_ms']} plain_ms={row['plain_ms']} library_ms={row['library_ms']} "
+          f"(SDPA with the ring mask + @ wo) bound_ms={t_bound} ({by}); launch 1 "
+          f"(attn_kernel<{G}, {hd}>) kernel_ms={t1} bound_ms={row['launch1_bound_ms']} "
+          f"({nb1 / t1 / 1e9} TB/s of the {used} of {B * sk} slots the lanes may attend) grid "
+          f"{B * hkv} (lane, kv-head) x {plan.splits} chunks of {plan.chunk} slots", flush=True)
+    return row
+
+
+def ring_projections(torch, timer, rates, rnd, close):
+    """mixtral-8x7b-ring's other two decode kernels at its widths (B = 8,
+    d 4096): the QKV GEMV (32 heads over 8, hd 128, RoPE theta 1e6 at the
+    lanes' decode positions at round ``RING_ROUND`` of a wave and at its
+    first round) and the SwiGLU MLP (4096 x 14336 and back), each with and
+    without bias (the path's has none) against its plain version, equal
+    bits on a second call; times of the path's call.  Returns the two
+    rows."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode, ref
+
+    cfg = model_cfg(RING)
+    hq, hkv, hd, d, ff = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_model, cfg.d_ff
+    dev = torch.device("cuda", 0)
+    x = rnd(B, d)
+
+    def at(r):
+        return torch.tensor([RING_PROMPTS[i % 2] + r - 1 for i in range(B)], dtype=torch.int32,
+                            device=dev)
+
+    # --- fused_qkv
+    wq, wk, wv = rnd(d, hq * hd, scale=0.02), rnd(d, hkv * hd, scale=0.02), rnd(d, hkv * hd, scale=0.02)
+    biases = (rnd(hq * hd, scale=0.02), rnd(hkv * hd, scale=0.02), rnd(hkv * hd, scale=0.02))
+    kw = dict(n_heads=hq, n_kv_heads=hkv, head_dim=hd, theta=cfg.rope_theta)
+    err = 0.0
+    for r in (RING_ROUND, 1):
+        pos = at(r)
+        for bs in (biases, (None, None, None)):
+            got = decode.fused_qkv(x, wq, wk, wv, *bs, pos, **kw)
+            want = ref.fused_qkv_ref(x, wq, wk, wv, *bs, pos, **kw)
+            for a, b_, n in zip(got, want, "qkv"):
+                err = max(err, close(a, b_, f"fused_qkv ring {n} round {r} bias={bs[0] is not None}"))
+            again = decode.fused_qkv(x, wq, wk, wv, *bs, pos, **kw)
+            assert all(torch.equal(a, b_) for a, b_ in zip(got, again)), \
+                f"fused_qkv ring round {r}: two calls differ"
+    pos = at(RING_ROUND)
+    wqkv = torch.cat([wq, wk, wv], dim=1)
+
+    def qkv_library():
+        y = (x @ wqkv).reshape(B, hq + 2 * hkv, hd)
+        ang = ref.rope_angles(pos, hd, cfg.rope_theta)[:, None]
+        return ref.rotate_half_split(y[:, : hq + hkv], torch.cos(ang), torch.sin(ang)), y[:, hq + hkv:]
+
+    t_bound, by = bound(rates, nbytes(x, wq, wk, wv, pos) + 2 * B * (hq + 2 * hkv) * hd,
+                        2 * B * d * (hq + 2 * hkv) * hd)
+    copies = [(wq, wk, wv)] + [tuple(w.clone() for w in (wq, wk, wv)) for _ in range(GRAPH_COPIES - 1)]
+    qkv = dict(
+        heads=hq, kv_heads=hkv, head_dim=hd, d_model=d, max_abs_err=err,
+        ms=timer(lambda: decode.fused_qkv(x, wq, wk, wv, None, None, None, pos, **kw)),
+        graph_ms=graph_ms(torch, [lambda c=c: decode.fused_qkv(x, *c, None, None, None, pos, **kw)
+                                  for c in copies] * GRAPH_PASSES),
+        plain_ms=timer(lambda: ref.fused_qkv_ref(x, wq, wk, wv, None, None, None, pos, **kw)),
+        library_ms=timer(qkv_library), bound_ms=t_bound, bound_by=by,
+    )
+    del copies, wqkv
+
+    # --- fused_mlp
+    wu, wg, wd = rnd(d, ff, scale=0.02), rnd(d, ff, scale=0.02), rnd(ff, d, scale=0.02)
+    bu, bd = rnd(ff, scale=0.02), rnd(d, scale=0.02)
+    merr = 0.0
+    for bs in ((bu, bd), (None, None)):
+        got = decode.fused_mlp(x, wu, wg, bs[0], wd, bs[1], act="swiglu")
+        want = ref.fused_mlp_ref(x, wu, wg, bs[0], wd, bs[1], act="swiglu")
+        merr = max(merr, close(got, want, f"fused_mlp ring swiglu bias={bs[0] is not None}"))
+        again = decode.fused_mlp(x, wu, wg, bs[0], wd, bs[1], act="swiglu")
+        assert torch.equal(got, again), "fused_mlp ring: two calls differ"
+    t_bound, by = bound(rates, nbytes(x, wu, wg, wd) + 2 * B * d, 2 * B * d * ff * 3)
+    copies = [(wu, wg, wd)] + [tuple(w.clone() for w in (wu, wg, wd)) for _ in range(GRAPH_COPIES - 1)]
+    mlp = dict(
+        d_model=d, d_ff=ff, max_abs_err=merr,
+        ms=timer(lambda: decode.fused_mlp(x, wu, wg, None, wd, None, act="swiglu")),
+        graph_ms=graph_ms(torch, [lambda c=c: decode.fused_mlp(x, c[0], c[1], None, c[2], None,
+                                                               act="swiglu")
+                                  for c in copies] * GRAPH_PASSES),
+        plain_ms=timer(lambda: ref.fused_mlp_ref(x, wu, wg, None, wd, None, act="swiglu")),
+        library_ms=timer(lambda: (F.silu(x @ wg) * (x @ wu)) @ wd),
+        bound_ms=t_bound, bound_by=by,
+    )
+    del copies
+    for name, what, row in (
+            ("fused_qkv", f"{hq} heads over {hkv}, hd {hd}, RoPE theta {cfg.rope_theta} at the "
+                          f"lanes' decode positions", qkv),
+            ("fused_mlp", f"SwiGLU {d} x {ff} and back", mlp)):
+        print(f"[kernel] {name} ring (mixtral-8x7b-ring's widths: B {B}, d {d}, {what}): two "
+              f"calls give equal bits in every case; max_abs_err={row['max_abs_err']} "
+              f"kernel_ms={row['ms']} graph_ms={row['graph_ms']} plain_ms={row['plain_ms']} "
+              f"library_ms={row['library_ms']} bound_ms={row['bound_ms']} ({row['bound_by']})",
+              flush=True)
+    return qkv, mlp
 
 
 def resnet_setup(torch):
@@ -1219,28 +1463,67 @@ def bf16_ulp(x: float) -> float:
     return 2.0 ** (math.floor(math.log2(abs(x))) - 7) if x else 2.0 ** -133
 
 
+def model_cfg(arch: str):
+    """``arch``'s config: the registry's, or a variant's (``VARIANTS``)."""
+    from repro_torch.configs import get_config
+
+    base, changes = VARIANTS.get(arch, (arch, {}))
+    return dataclasses.replace(get_config(base), **changes)
+
+
 def serve_argv(arch: str) -> list:
-    """The serve phase's requests to ``arch``: ``SERVE_ARGV``'s, with the
-    arch's own prompt length where it has one (``FAMILY_PROMPT_LEN``)."""
-    argv = ["--arch", arch] + SERVE_ARGV[2:]
+    """The serve phase's requests to ``arch`` (a variant: to its base
+    arch): ``SERVE_ARGV``'s, with the arch's own prompt length where it
+    has one (``FAMILY_PROMPT_LEN``; a variant's longest)."""
+    argv = ["--arch", VARIANTS.get(arch, (arch,))[0]] + SERVE_ARGV[2:]
     if arch in FAMILY_PROMPT_LEN:
         argv[argv.index("--prompt-len") + 1] = str(FAMILY_PROMPT_LEN[arch])
     return argv
 
 
 def serve_engine(serve, kernels: bool, eager: bool = False, extra=(), arch="olmo-1b",
-                 warm: bool = True):
+                 warm: bool = True, f32: bool = False):
     """The launcher's engine for the serve phase's requests to ``arch``
     (``extra`` arguments after them), warmed up unless not ``warm``, with
     the requests queued; its decode blocks replay CUDA graphs unless
-    ``eager``."""
+    ``eager``.  ``f32``: the same weights widened to float32 and served
+    in float32 (the composed path's float32 reference)."""
+    from repro_torch.runtime.serving import ServingEngine
+
     argv = serve_argv(arch) + (["--decode-kernels"] if kernels else []) + list(extra)
     gc.collect()        # an engine left in a reference cycle still holds its weights
     args = serve.build_parser().parse_args(argv)
-    engine = serve.make_engine(args, eager=eager)
+    if arch in VARIANTS:
+        # a config the registry does not name, with the launcher's settings
+        from repro_torch.kernels.common import resolve_device
+        from repro_torch.models.api import get_api
+
+        cfg, dev = model_cfg(arch), resolve_device(args.device)
+        engine = ServingEngine(cfg, get_api(cfg).init_params(cfg, args.seed, dev),
+                               serve.serve_config(args), dev, eager=eager)
+    else:
+        engine = serve.make_engine(args, eager=eager)
+    if f32:
+        def widen(tree):
+            return {k: widen(v) for k, v in tree.items()} if isinstance(tree, dict) else tree.float()
+
+        cfg, sc, params = engine.cfg, engine.serve_cfg, widen(engine.params)
+        del engine
+        gc.collect()
+        engine = ServingEngine(dataclasses.replace(cfg, dtype="float32"), params, sc,
+                               params["embed"].device, eager=eager)
     if warm:
         engine.warmup()
-    serve.submit_requests(engine, args)
+    if arch in VARIANTS:
+        # the ring's traffic: prompts alternating in length
+        import numpy as np
+
+        rng = np.random.default_rng(args.seed)
+        for i in range(args.requests):
+            n = RING_PROMPTS[i % len(RING_PROMPTS)]
+            engine.submit(rng.integers(0, engine.cfg.vocab, size=n).astype(np.int32))
+    else:
+        serve.submit_requests(engine, args)
     return engine
 
 
@@ -1326,7 +1609,7 @@ def serve_runs(torch, rates, arch="olmo-1b"):
                       f"{st['mean_decode_round_s'] / bound_s}", flush=True)
                 if cfg.window:
                     # a local layer attends at most its window of the cache
-                    slots = engine.serve_cfg.max_len
+                    slots = engine._cache[0].shape[2]
                     kv_win = kvb * sum(min(w, slots) for w in transformer.window_list(cfg)) / (
                         cfg.n_layers * slots)
                     print(f"[serve] {pre}of the KV cache the layers' windows let a round read at "
@@ -1335,7 +1618,9 @@ def serve_runs(torch, rates, arch="olmo-1b"):
             if not eager:
                 scratch_left_zero(torch, engine._graphs.values(), f"the {label} run's replays")
             runs[label] = dict(streams=streams, launches=launches, ttft_s=st["mean_ttft_s"],
-                               round_s=st["mean_decode_round_s"], tokens_per_s=st["tokens_per_s"])
+                               round_s=st["mean_decode_round_s"], tokens_per_s=st["tokens_per_s"],
+                               cache_bytes=tree_bytes(engine._cache),
+                               max_len=engine.serve_cfg.max_len)
             del engine
             free(torch)
         path = "kernels" if kernels else "composed"
@@ -1589,7 +1874,8 @@ def plan_paper_phase():
     resnet_paper.main(["--variant", str(RESNET), "--plan-only"])
 
 
-def logged_run(torch, kernels: bool, feed=None, extra=(), arch="olmo-1b", steps=None):
+def logged_run(torch, kernels: bool, feed=None, extra=(), arch="olmo-1b", steps=None,
+               f32: bool = False):
     """An untimed, eager run of the serve phase's requests (``extra``
     launcher arguments after them; all of them, or the first ``steps``
     engine steps) that keeps every round's logits on the card; returns
@@ -1608,7 +1894,7 @@ def logged_run(torch, kernels: bool, feed=None, extra=(), arch="olmo-1b", steps=
 
     # eager: the hook runs every round
     engine = serve_engine(serve, kernels, eager=True, extra=extra, arch=arch,
-                          warm="--multi-pu" in extra)
+                          warm="--multi-pu" in extra, f32=f32)
     state, lanes, B = engine._state, engine._lanes, len(engine._slots)
     table = torch.zeros_like(state["out_buf"])
     loaded = [None] * B
@@ -1706,13 +1992,13 @@ def compare_rounds(torch, want_rounds, got_rounds):
 def forced_phase(torch, runs, arch="olmo-1b", bar=LOGIT_ATOL):
     """Hold the kernel path's logits to the composed path's at every step
     of every request, on the same tokens, within ``bar``, and tie the
-    timed kernel run's streams to those checked logits."""
+    timed kernel run's streams to those checked logits.  Returns the
+    composed run's streams and rounds and the kernel run's rounds."""
     pre = "" if arch == "olmo-1b" else f"{arch} "
     want_streams, want_rounds, _ = logged_run(torch, kernels=False, arch=arch)
     assert want_streams == runs["composed"]["streams"], "the composed path is not deterministic"
     got_streams, got_rounds, _ = logged_run(torch, kernels=True, feed=want_streams, arch=arch)
     diffs, flips = compare_rounds(torch, want_rounds, got_rounds)
-    del got_rounds
     assert len(diffs) == REQUESTS * (MAX_NEW - 1), len(diffs)
     d = sorted(diffs.values())
     print(f"[forced] {pre}{len(d)} (request, step) logit vectors, kernel vs composed on the same "
@@ -1730,7 +2016,7 @@ def forced_phase(torch, runs, arch="olmo-1b", bar=LOGIT_ATOL):
     # the timed kernel run scored the composed prefix up to its first
     # divergence, so up to and including it its tokens are the checked ones
     tie_streams(runs["kernels"]["streams"], runs["composed"]["streams"], got_streams)
-    return want_streams, want_rounds
+    return want_streams, want_rounds, got_rounds
 
 
 def fault_phase(torch, want_streams, want_rounds, arch="olmo-1b", bar=LOGIT_ATOL):
@@ -1739,11 +2025,14 @@ def fault_phase(torch, want_streams, want_rounds, arch="olmo-1b", bar=LOGIT_ATOL
     each must move the logits past ``bar``, or the check is blind to it.
     A probe serves the first ``PROBE_STEPS`` engine steps (the first
     wave's prefill and decode block) and is held to the same steps of the
-    checked run."""
-    from repro_torch.configs import get_config
+    checked run.  A ring config's attention masks by the ring's slot
+    positions, not by ``kv_valid_len``: its probe makes them linear."""
     from repro_torch.kernels import common, dispatch, ref
+    from repro_torch.models import transformer
 
+    cfg = model_cfg(arch)
     qkv, attn = dispatch.decode_qkv, dispatch.decode_attention
+    ring_positions = transformer.ring_positions
     no_window = common.device_int(ref.BIG_WINDOW, "window", torch.device("cuda", 0))
 
     def rope_late(cfg, p, x, positions, *, rope):
@@ -1755,20 +2044,31 @@ def fault_phase(torch, want_streams, want_rounds, arch="olmo-1b", bar=LOGIT_ATOL
     def windows_dropped(cfg, p, q, k, v, *, window_arr, **kw):
         return attn(cfg, p, q, k, v, window_arr=no_window, **kw)
 
-    probes = [("rope one position late", rope_late, "decode_qkv"),
-              ("current token left out of attention", own_token_dropped, "decode_attention")]
-    if get_config(arch).window:
-        probes.append(("every layer's window BIG_WINDOW", windows_dropped, "decode_attention"))
-    for name, fn, patch in probes:
-        setattr(dispatch, patch, fn)
+    def linear_positions(pos, slots):
+        s = torch.arange(slots, dtype=torch.int32, device=pos.device)
+        return s.expand(*pos.shape, slots).contiguous()
+
+    probes = [("rope one position late", dispatch, "decode_qkv", rope_late)]
+    if transformer.ring_applies(cfg):
+        probes.append(("ring positions linear (each slot's index)", transformer, "ring_positions",
+                       linear_positions))
+    else:
+        probes.append(("current token left out of attention", dispatch, "decode_attention",
+                       own_token_dropped))
+        if cfg.window:
+            probes.append(("every layer's window BIG_WINDOW", dispatch, "decode_attention",
+                           windows_dropped))
+    pre = "" if arch == "olmo-1b" else f"{arch} "
+    for name, module, attr, fn in probes:
+        setattr(module, attr, fn)
         try:
             _, rounds, _ = logged_run(torch, kernels=True, feed=want_streams, arch=arch,
                                       steps=PROBE_STEPS)
         finally:
             dispatch.decode_qkv, dispatch.decode_attention = qkv, attn
+            transformer.ring_positions = ring_positions
         diffs, flips = compare_rounds(torch, want_rounds[:len(rounds)], rounds)
         d = sorted(diffs.values())
-        pre = "" if arch == "olmo-1b" else f"{arch} "
         print(f"[fault] {pre}{name}: max |diff| {d[-1]}, median {statistics.median(d)}, "
               f"argmax differs at {len(flips)} of {len(d)} steps (limit {bar})", flush=True)
         assert d[-1] > bar, f"{arch}: the teacher-forced check does not see the fault '{name}'"
@@ -1791,7 +2091,7 @@ def family_phase(torch, rates, arch: str) -> dict:
     walls = [time.perf_counter()]
     prof = profile_phase(torch, runs, arch, modes=(False,))[f"{arch} captured"]
     walls.append(time.perf_counter())
-    want_streams, want_rounds = forced_phase(torch, runs, arch, bar)
+    want_streams, want_rounds = forced_phase(torch, runs, arch, bar)[:2]
     walls.append(time.perf_counter())
     fault_phase(torch, want_streams, want_rounds, arch, bar)
     del want_rounds
@@ -1805,6 +2105,109 @@ def family_phase(torch, rates, arch: str) -> dict:
           f"captured block {prof['busy_ms'] / prof['window_ms']} (composed path captured "
           f"{runs['composed']['round_s'] * 1e3} ms); teacher-forced bar {bar}; phase wall "
           f"{time.perf_counter() - t0} s", flush=True)
+    return k["launches"]
+
+
+def ring_phase(torch, rates) -> dict:
+    """``[serve] mixtral-8x7b-ring``: mixtral-8x7b's dense widths with its
+    4096-token window and a ring KV cache, seeded random bf16 weights,
+    nothing cut, 16 requests of 64 new tokens on 8 slots, prompts
+    alternating 4064 and 4160 tokens (``RING_PROMPTS``; each wave two
+    exact-length prefill calls of 4 lanes).  (a) both paths eager and
+    captured (``serve_runs``): captured streams equal eager, no capture
+    after warmup; a profiled captured block; (b) the kernel path
+    teacher-forced to the composed path within ``RING_LOGIT_ATOL``; (c)
+    the same model with a full cache (``RING_FULL``), teacher-forced on
+    the same tokens on the kernel path over the first wave
+    (``RING_FULL_STEPS``, past both prompt lengths' wraps), within
+    ``RING_LOGIT_ATOL`` of the ring; the same weights served in float32
+    on those tokens over the first ``PROBE_STEPS``: each bf16 path (the
+    composed, the kernel, the full cache) within the bar of it; (d) the fault probes, the ring positions made linear; (e)
+    ``--multi-pu 2`` on the shared card (M = 1, captured): the single-PU
+    captured kernel run's streams.  Returns the captured kernel run's
+    launches."""
+    from repro_torch.launch import serve
+
+    t0 = time.perf_counter()
+    bar = RING_LOGIT_ATOL
+    cfg = model_cfg(RING)
+    runs = serve_runs(torch, rates, RING)
+    walls = [time.perf_counter()]
+    prof = profile_phase(torch, runs, RING, modes=(False,))[f"{RING} captured"]
+    walls.append(time.perf_counter())
+    want_streams, want_rounds, ring_rounds = forced_phase(torch, runs, RING, bar)
+    walls.append(time.perf_counter())
+    # (c) the ring against a full cache, the kernel path on both
+    _, full_rounds, _ = logged_run(torch, True, feed=want_streams, arch=RING_FULL,
+                                   steps=RING_FULL_STEPS)
+    diffs, flips = compare_rounds(torch, ring_rounds[:len(full_rounds)], full_rounds)
+    d = sorted(diffs.values())
+    wrapped = max(step for (uid, step) in diffs if RING_PROMPTS[uid % 2] < cfg.window)
+    k = runs["kernels"]
+    print(f"[ring] (c) ring ({cfg.window} slots) against a full cache ({k['max_len']} slots, the "
+          f"window mask alone), kernels on both, on the composed run's tokens over the first "
+          f"{RING_FULL_STEPS} engine steps (the {RING_PROMPTS[0]}-token lanes to step {wrapped}): "
+          f"{len(d)} (request, step) logit vectors, max |diff| {d[-1]}, median "
+          f"{statistics.median(d)}, argmax differs at {len(flips)} steps (limit {bar})", flush=True)
+    assert wrapped >= RING_ROUND and d[-1] <= bar, (wrapped, d[-1])
+    walls.append(time.perf_counter())
+    # each bf16 run's distance to the same weights served in float32 on
+    # the same tokens: the bar must cover the rounding of every bf16 path
+    # (the composed path's own included), and a full cache within it of
+    # the float32 ring attends what the ring attends
+    _, f32_rounds, _ = logged_run(torch, False, feed=want_streams, arch=RING, f32=True,
+                                  steps=PROBE_STEPS)
+    n = len(f32_rounds)
+    dist = {}
+    for path, rounds in (("composed", want_rounds), ("kernel", ring_rounds),
+                         ("kernel full-cache", full_rounds)):
+        d = sorted(compare_rounds(torch, f32_rounds, rounds[:n])[0].values())
+        dist[path] = d[-1]
+        print(f"[ring] float32 distance over the first {PROBE_STEPS} engine step ({len(d)} "
+              f"(request, step) logit vectors): the {path} path's logits against the float32 "
+              f"composed ring run's on the same tokens: max |diff| {d[-1]}, median "
+              f"{statistics.median(d)}, p99 {d[int(0.99 * (len(d) - 1))]}", flush=True)
+    assert max(dist.values()) <= bar, dist
+    del f32_rounds, full_rounds, ring_rounds
+    free(torch)
+    walls.append(time.perf_counter())
+    # (d) the ring positions broken
+    fault_phase(torch, want_streams, want_rounds, RING, bar)
+    del want_rounds
+    free(torch)
+    walls.append(time.perf_counter())
+    # (e) two stages on the shared card: M = 1, captured
+    engine = serve_engine(serve, True, False, MULTI_PU, arch=RING)
+    st, launches, captures = served(torch, engine)
+    staged = engine._staged
+    streams = {r.uid: r.out_tokens for r in engine.completed}
+    same = sum(streams[u] == s for u, s in k["streams"].items())
+    print(f"[ring] (e) --multi-pu 2 (M = {staged.n_groups} on the shared card, captured): round "
+          f"{st['mean_decode_round_s'] * 1e3} ms against the single-PU captured round "
+          f"{k['round_s'] * 1e3} ms, tokens_per_s={st['tokens_per_s']}, graphs captured at "
+          f"warmup {captures}, after 0; greedy streams {same}/{REQUESTS} equal to the single-PU "
+          f"captured kernel run's", flush=True)
+    assert engine.stages_share_card and staged.coalesce and staged.n_groups == 1, staged.n_groups
+    assert captures == len(staged.graphs) == 6, captures
+    assert all(n == cfg.n_layers * engine.decode_rounds for n in launches.values()), launches
+    assert streams == k["streams"], "the staged ring served other tokens than the single-PU ring"
+    del engine, staged
+    free(torch)
+    walls.append(time.perf_counter())
+    kv_layer = k["cache_bytes"] // cfg.n_layers             # a layer's ring K and V
+    attn_us = prof["kernel_ms"].get("attn_kernel", 0.0) * 1e3 / cfg.n_layers
+    print(f"[serve] {RING}: wall s of the timed runs, profile, teacher-forced runs, ring vs full "
+          f"cache, float32 distance, probes, multi-pu: "
+          f"{[b - a for a, b in zip([t0] + walls, walls)]}", flush=True)
+    print(f"[serve] {RING}: captured kernel path {k['round_s'] * 1e3} ms a round, "
+          f"{k['tokens_per_s']} tokens/s, mean TTFT {k['ttft_s']} s, device busy share of a "
+          f"captured block {prof['busy_ms'] / prof['window_ms']} (composed path captured "
+          f"{runs['composed']['round_s'] * 1e3} ms); attention in situ {attn_us} us a layer "
+          f"(attn_kernel<{cfg.n_heads // cfg.n_kv_heads}, {cfg.head_dim}>; a layer's ring K/V "
+          f"{kv_layer} B take {kv_layer / rates['bytes'] * 1e6} us at {rates['bytes']} B/s); KV "
+          f"cache {k['cache_bytes']} B as a ring against "
+          f"{k['cache_bytes'] * k['max_len'] // cfg.window} B as a full cache; teacher-forced "
+          f"bar {bar}; phase wall {time.perf_counter() - t0} s; {card_line()}", flush=True)
     return k["launches"]
 
 
@@ -1886,9 +2289,7 @@ def profile_phase(torch, runs, arch="olmo-1b", modes=(True, False)):
     inside a traced decode block (``decode_block_profile``) of ``arch``,
     eager and captured (``modes``: eager or not), and the block's launch
     counts against the profiler's."""
-    from repro_torch.configs import get_config
-
-    n_layers = get_config(arch).n_layers
+    n_layers = model_cfg(arch).n_layers
     pre = "" if arch == "olmo-1b" else f"{arch} "
     out = {}
     for eager in modes:
@@ -1917,7 +2318,10 @@ def profile_phase(torch, runs, arch="olmo-1b", modes=(True, False)):
               f"{ {k: seen(k, inside) for k in want} }); device ops in the block's host span "
               f"{sum(inside.values())}", flush=True)
         assert launches["fused_qkv"] == n_layers * rounds and got == want, (launches, want, got)
-        out[label] = dict(busy_ms=busy_ms, window_ms=window_ms)
+        kernel_ms = {}
+        for name, us in by_name.items():
+            kernel_ms[kernel_name(name)] = kernel_ms.get(kernel_name(name), 0.0) + us / 1e3 / rounds
+        out[label] = dict(busy_ms=busy_ms, window_ms=window_ms, kernel_ms=kernel_ms)
     return out
 
 
@@ -2179,7 +2583,7 @@ def main() -> int:
     plan_paper_phase()
     aimc_serve_phase(torch)
     torch.cuda.empty_cache()
-    want_streams, want_rounds = forced_phase(torch, runs)
+    want_streams, want_rounds = forced_phase(torch, runs)[:2]
     fault_phase(torch, want_streams, want_rounds)
     del want_rounds
     torch.cuda.empty_cache()
@@ -2188,6 +2592,9 @@ def main() -> int:
     family_launches = {arch: family_phase(torch, rates, arch) for arch in FAMILY_LOGIT_ATOL}
     rows["fused_decode_attention"]["head_dim_256"]["launches"] = \
         family_launches["gemma3-12b"]["fused_decode_attention"]
+    ring_launches = ring_phase(torch, rates)
+    for kernel in ("fused_qkv", "fused_decode_attention", "fused_mlp"):
+        rows[kernel]["ring"]["launches"] = ring_launches[kernel]
     # each kernel's launches on its main path: the captured serve run, the
     # captured ResNet-50 forward, the AIMC rounds
     launches = {**runs["kernels"]["launches"], "niu_refresh": aimc["launches"]["niu_refresh"],

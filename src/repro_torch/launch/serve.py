@@ -115,7 +115,12 @@ def make_engine(args, eager: bool = False) -> ServingEngine:
         cfg = smoke_variant(cfg)
     api = model_api.get_api(cfg)
     params = api.init_params(cfg, args.seed, device)
-    serve_cfg = ServeConfig(
+    return ServingEngine(cfg, params, serve_config(args), device, eager=eager)
+
+
+def serve_config(args) -> ServeConfig:
+    """The engine's settings for parsed launcher arguments."""
+    return ServeConfig(
         max_batch=args.max_batch,
         max_len=args.prompt_len + args.max_new + 8,
         max_new_tokens=args.max_new,
@@ -143,7 +148,6 @@ def make_engine(args, eager: bool = False) -> ServingEngine:
             else None
         ),
     )
-    return ServingEngine(cfg, params, serve_cfg, device, eager=eager)
 
 
 def submit_requests(engine: ServingEngine, args) -> None:

@@ -10,6 +10,12 @@ gemma3's local:global layers): :func:`layer_windows` gives each layer
 its window, and every path, prefill and decode, composed and kernels,
 masks with it.
 
+A pure sliding-window model with ``kv_ring`` keeps a ring KV cache of
+``min(max_len, window)`` slots (:func:`ring_applies`, the reference's
+rule): decode writes position ``p`` to slot ``p % slots`` and attends the
+slots through their absolute positions (:func:`ring_positions`); prefill
+lays its last ``window`` positions out the same way.
+
 Unlike the reference, the decode path updates the KV cache *in place*:
 the cache tensors given to :func:`decode_step` / :func:`decode_stage` are
 written and returned, so the serving engine's preallocated buffers are
@@ -38,7 +44,6 @@ _LATER = (
     (lambda c: c.family == "vlm", "vlm patch embeddings", 9),
     (lambda c: c.is_moe, "mixture-of-experts MLPs", 12),
     (lambda c: c.kv_quant, "kv_quant", 9),
-    (lambda c: c.kv_ring, "kv_ring", 9),
     (lambda c: c.pos_embed != "rope", "{pos_embed} positions", 9),
 )
 
@@ -161,6 +166,25 @@ def layer_windows(cfg: ModelConfig, device=None) -> torch.Tensor:
     return t
 
 
+def ring_applies(cfg: ModelConfig) -> bool:
+    """The cache is a ring: ``kv_ring`` on a pure sliding-window model (a
+    model with global layers keeps its full cache), as the reference
+    decides it."""
+    return bool(cfg.kv_ring and cfg.window and not cfg.global_every)
+
+
+def ring_positions(pos: torch.Tensor, slots: int) -> torch.Tensor:
+    """The absolute position each ring slot holds once position ``pos``
+    is written: ``pos - ((pos - s) mod slots)``, the modulo a floor-mod
+    (``torch.fmod`` would differ on slots past ``pos``), so a slot not yet
+    written comes out negative.  ``pos`` () int32 -> (slots,); (B,) ->
+    (B, slots).  Computed on the device, so a captured block replays it."""
+    s = torch.arange(slots, dtype=torch.int32, device=pos.device)
+    if pos.dim() > 0:
+        pos = pos[:, None]
+    return pos - (pos - s) % slots
+
+
 def _layer_slice(tree, i):
     """Layer ``i`` of a stacked params/cache tree (views, no copies)."""
     if isinstance(tree, dict):
@@ -180,6 +204,8 @@ def _layer_fn(
     cache_kv: Optional[Tuple[torch.Tensor, torch.Tensor]],  # (B, Smax, KV, hd) x2
     decode_pos: Optional[torch.Tensor],                     # () or (B,) int32
     return_kv: bool,
+    write_pos: Optional[torch.Tensor] = None,     # a ring's slot of decode_pos
+    kv_positions: Optional[torch.Tensor] = None,  # a ring's (Smax,) or (B, Smax) positions
 ):
     dt = x.dtype
     # the decode kernels take the single-token hot path when
@@ -196,13 +222,15 @@ def _layer_fn(
     new_cache = None
     if cache_kv is not None:
         ck, cv = cache_kv
+        if write_pos is None:
+            write_pos = decode_pos
         if decode_pos.dim() > 0:
             # one-token decode: each lane writes its row at its own position
             lanes = torch.arange(ck.shape[0], device=ck.device)
-            ck[lanes, decode_pos] = k[:, 0].to(ck.dtype)
-            cv[lanes, decode_pos] = v[:, 0].to(cv.dtype)
+            ck[lanes, write_pos] = k[:, 0].to(ck.dtype)
+            cv[lanes, write_pos] = v[:, 0].to(cv.dtype)
         else:
-            idx = decode_pos + torch.arange(x.shape[1], device=ck.device)
+            idx = write_pos + torch.arange(x.shape[1], device=ck.device)
             ck.index_copy_(1, idx, k.to(ck.dtype))
             cv.index_copy_(1, idx, v.to(cv.dtype))
         new_cache = (ck, cv)
@@ -218,6 +246,7 @@ def _layer_fn(
             q_positions=positions,
             kv_valid_len=valid,
             window_arr=window,
+            kv_positions=kv_positions,
         )
     else:
         ctx = attn.gqa_attention(
@@ -226,6 +255,7 @@ def _layer_fn(
             kv_valid_len=valid,
             causal=True,
             window_arr=window,
+            kv_positions=kv_positions,
             chunk=cfg.attn_chunk,
         )
         x = x + attn.project_out(cfg, lp["attn"], ctx)
@@ -293,8 +323,28 @@ def prefill(
     ``lengths`` (B,) enables bucketed batched prefill: rows are prompts
     right-padded to a shared bucket length, and logits are gathered at
     each row's last real token.  The cache keeps the padded tail; causal
-    masking hides it and decode overwrites it before it becomes visible."""
+    masking hides it and decode overwrites it before it becomes visible.
+
+    A ring config (:func:`ring_applies`) returns the ring layout: past the
+    window, the last ``window`` positions at slots ``position % window``;
+    a prompt of at most ``window`` tokens keeps its ``s`` slots as they
+    are.  The layout shifts the whole sequence, so it takes no
+    ``lengths`` (the engine admits ring prompts at their exact length)."""
+    if ring_applies(cfg) and lengths is not None:
+        raise ValueError("bucketed prefill (lengths) is unsupported for kv_ring configs: "
+                         "the ring re-layout is a whole-sequence shift")
     hidden, cache = forward_hidden(cfg, params, tokens, return_cache=True)
+    s = tokens.shape[1]
+    if ring_applies(cfg) and s > cfg.window:
+        n = cfg.window
+        slots = torch.arange(s - n, s, device=tokens.device) % n
+
+        def relayout(c):
+            out = torch.empty_like(c[:, :, :n])
+            out[:, :, slots] = c[:, :, s - n:]
+            return out
+
+        cache = tuple(relayout(c) for c in cache)
     if lengths is not None:
         b = tokens.shape[0]
         lanes = torch.arange(b, device=tokens.device)
@@ -305,9 +355,12 @@ def prefill(
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
+    """A zero KV cache of ``max_len`` slots a lane; a ring's holds
+    ``min(max_len, window)``."""
     check_supported(cfg)
     device = resolve_device(device)
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    slots = min(max_len, cfg.window) if ring_applies(cfg) else max_len
+    shape = (cfg.n_layers, batch, slots, cfg.n_kv_heads, cfg.head_dim)
     return (
         torch.zeros(shape, dtype=_dtype(cfg), device=device),
         torch.zeros(shape, dtype=_dtype(cfg), device=device),
@@ -363,15 +416,21 @@ def decode_stage(
     pos: torch.Tensor,               # () or (B,) int32 -- write position
 ):
     """One token step through a contiguous layer slice -> (hidden, cache).
-    The cache is updated in place and returned."""
+    The cache is updated in place and returned.  A ring's write slot and
+    slot positions are computed once for the slice."""
     n = stage_params["windows"].shape[0]
     pos, positions = _decode_positions(pos, hidden.shape[0])
+    write_pos = kv_positions = None
+    if ring_applies(cfg):
+        slots = stage_cache[0].shape[2]
+        write_pos, kv_positions = pos % slots, ring_positions(pos, slots)
     x = hidden
     for i in range(n):
         x, _, _ = _layer_fn(
             cfg, x, _layer_slice(stage_params["layers"], i),
             stage_params["windows"][i], positions,
             tuple(c[i] for c in stage_cache), pos, return_kv=False,
+            write_pos=write_pos, kv_positions=kv_positions,
         )
     return x, stage_cache
 

@@ -6,7 +6,8 @@ Request flow (continuous batching, decode-centric):
     submit(prompt tokens) -> queue
     engine round: (AIMC noise refresh,) admit waiting requests into free
                   slots (bucketed batched prefill, one call per length
-                  bucket), then run a block of decode rounds entirely on
+                  bucket; a ring KV cache, one call per exact prompt
+                  length), then run a block of decode rounds entirely on
                   the device.
 
 The JAX engine runs a decode block as one jitted ``lax.scan`` with the
@@ -79,6 +80,7 @@ from repro_torch.kernels import decode as kdecode
 from repro_torch.kernels.common import capture_graph, resolve_device
 from repro_torch.launch.mesh import stage_devices
 from repro_torch.models import api as model_api
+from repro_torch.models.transformer import ring_applies
 from repro_torch.plan import (
     PartitionedPlan,
     SearchConfig,
@@ -265,6 +267,9 @@ class ServingEngine:
         self._cache = self.api.init_cache(
             cfg, serve_cfg.max_batch, serve_cfg.max_len, self.device
         )
+        # a ring's prefill re-lays out the whole sequence, which padded
+        # per-lane lengths would shift: its prompts go in at their length
+        self.bucketed_prefill = self.api.supports_bucketed_prefill and not ring_applies(cfg)
         ladder = [
             b for b in (
                 serve_cfg.prefill_buckets
@@ -386,7 +391,8 @@ class ServingEngine:
 
     def warmup(self):
         """Run every (prompt bucket x pow2 admit width) prefill shape once
-        and, for every pow2 decode-block length, the block once and (on
+        (with bucketed prefill; exact-length prompts have no fixed set of
+        shapes) and, for every pow2 decode-block length, the block once and (on
         the card) its CUDA-graph capture, so the kernel library is built
         and loaded, and the allocator and matmul libraries are warm before
         live traffic, which then captures nothing.  Warmup admissions
@@ -406,7 +412,7 @@ class ServingEngine:
             nb *= 2
         nbs.append(_pow2_ceil(sc.max_batch))
         dev = self.device
-        for S in self._buckets:
+        for S in self._buckets if self.bucketed_prefill else ():
             for nb in nbs:
                 self._admit_impl(
                     self.params, self._cache, self._state,
@@ -597,7 +603,7 @@ class ServingEngine:
         ``slots`` (n,) names the lanes of the first n rows; the remaining
         rows pad the batch to a power of two and are never written."""
         n = slots.shape[0]
-        batch = {"tokens": tokens, "lengths": lengths}
+        batch = {"tokens": tokens, "lengths": lengths if self.bucketed_prefill else None}
         logits, one_cache = self.api.prefill(self.cfg, params, batch)
         tok = self._sample_device(logits)
         scatter_cache_lanes(cache, one_cache, slots)
@@ -627,8 +633,9 @@ class ServingEngine:
 
     def _admit_device(self):
         """Admit every waiting request a free slot can take.  Requests of
-        one round whose prompts fall in the same length bucket share a
-        single prefill call."""
+        one round whose prompts fall in the same length bucket (without
+        bucketed prefill: of the same length) share a single prefill
+        call."""
         sc = self.serve_cfg
         free = [i for i, s in enumerate(self._slots) if s is None]
         admits: List[Tuple[int, Request]] = []
@@ -648,15 +655,14 @@ class ServingEngine:
         groups: Dict[int, List[Tuple[int, Request, np.ndarray]]] = {}
         for slot, req in admits:
             prompt = self._truncated_prompt(req)
-            groups.setdefault(self._bucket_for(len(prompt)), []).append(
-                (slot, req, prompt)
-            )
+            S = self._bucket_for(len(prompt)) if self.bucketed_prefill else len(prompt)
+            groups.setdefault(S, []).append((slot, req, prompt))
 
         dev = self.device
         for S, group in sorted(groups.items()):
             nb = len(group)
             # pad the admit batch to a power of two, as the reference does
-            nb_pad = _pow2_ceil(nb)
+            nb_pad = _pow2_ceil(nb) if self.bucketed_prefill else nb
             tokens = np.full((nb_pad, S), sc.pad_token, np.int32)
             lengths = np.ones((nb_pad,), np.int32)
             max_new = np.ones((nb_pad,), np.int32)
