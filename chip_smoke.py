@@ -35,9 +35,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    (RoPE theta 1e6 at the ring's decode positions, with and without
    bias) and SwiGLU MLP (4096 x 14336 and back, with and without bias)
    at the same widths, each against its plain version, equal bits twice,
-   the same times; after the build,
-   the registers and spill bytes of every ``attn_kernel`` instantiation
-   (hd 32 to 256) from the ptxas report.
+   the same times; the attention's int8-K/V variant (``kv_quant``, rows
+   2e-2g: olmo-1b's widths over ``[serve] olmo-1b-kvq``'s 2120 slots,
+   gemma3-12b's hd 256 with a local window, mixtral-8x7b-ring's G = 4 over
+   its ring positions): equal bits to the bf16 kernel on the dequantized
+   cache and on a second call, within ``ATOL`` of the plain version,
+   ``Timer`` and ``graph_ms`` times, ``kv_dequantize`` + SDPA + ``@ wo``,
+   launch 1 alone, the bf16 kernel's graph time beside it; after the
+   build, the registers and spill bytes of every ``attn_kernel``
+   instantiation (hd 32 to 256, bf16 and int8 K/V) from the ptxas report.
 2a. PU kernel phase, on a seeded full-width ResNet-50 (224x224x3 int8
    image): ``int8_gemm`` and ``im2col`` against their plain versions bit
    for bit at the operands of every call of one forward (53 GEMMs on the
@@ -153,12 +159,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    (the partition through the stage-parallel runtime with functional
    tiles); (b2) ``--microbatches 2``, two lane groups, captured: no
    capture after warmup, its streams equal to the same engine run
-   eagerly, and its logits held teacher-forced to the single-PU kernel
-   path's within ``LOGIT_ATOL`` (an eager staged run fed the single-PU
-   run's tokens against an eager single-PU run fed the same), with the
-   count of streams that are equal; (c) with two or more cards, the
-   stages on their own devices (the threaded executor, M tuned); with
-   one, a line that says the stages share it.  Tokens/s,
+   eagerly and to the single-PU kernel run's (each lane group's
+   attention split as the whole batch's, ``plan_lanes``), and its logits
+   held teacher-forced to the single-PU kernel path's within
+   ``LOGIT_ATOL`` (an eager staged run fed the single-PU run's tokens
+   against an eager single-PU run fed the same); (c) with two or more
+   cards, the stages on their own devices (the threaded executor, M
+   tuned), held the same way; with one, a line that says the stages
+   share it.  Tokens/s,
    the round time, ``partition_*`` and ``stage_decode*`` stats, the tuned
    M and queue depth, and each run's launches (16 a layer slice a lane
    group a round).
@@ -183,11 +191,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    kernels the profiler saw.
 8. ``[serve] starcoder2-15b``, ``[serve] nemotron-4-15b`` and ``[serve]
    gemma3-12b``: each model at its published widths (40, 32 and 48
-   layers, d_model 6144, 6144 and 3840, d_ff 24576, 24576 and 15360,
-   vocab 49152, 256000 and 262144; 48 query heads over 4 and 8 KV heads,
-   16 over 8 at head_dim 256; gemma3's five local layers of window 1024
-   to one global, RMSNorm, tied embeddings), seeded random bf16 weights,
-   nothing cut, served with ``SERVE_ARGV``'s requests (gemma3's prompts
+   layers, gemma3's cut to 24, ``GEMMA_LAYERS``; d_model 6144, 6144 and
+   3840, d_ff 24576, 24576 and 15360, vocab 49152, 256000 and 262144; 48
+   query heads over 4 and 8 KV heads, 16 over 8 at head_dim 256; gemma3's
+   five local layers of window 1024 to one global, RMSNorm, tied
+   embeddings), seeded random bf16 weights, no width cut, served with
+   ``SERVE_ARGV``'s requests (gemma3's prompts
    1536 tokens long, past its window: ``FAMILY_PROMPT_LEN``): both paths
    eager and captured as in 4 (launches, no capture after warmup,
    captured streams equal eager, the round against its bound), a
@@ -198,9 +207,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    next is made.
 8a. ``[serve] mixtral-8x7b-ring``: the reference's ring construction
    (``dataclasses.replace(mixtral-8x7b, n_experts=0, top_k=0,
-   kv_ring=True)``) at its published widths (32 layers, d_model 4096, 32
-   heads over 8, d_ff 14336 SwiGLU, RMSNorm, vocab 32000 untied, window
-   4096), seeded random bf16 weights, nothing cut; 16 requests of 64 new
+   kv_ring=True)``) at its published widths (d_model 4096, 32 heads over
+   8, d_ff 14336 SwiGLU, RMSNorm, vocab 32000 untied, window 4096), 16 of
+   its 32 layers (``RING_LAYERS``), seeded random bf16 weights; 16 requests of 64 new
    tokens on 8 slots, prompts alternating 4064 and 4160 tokens
    (``RING_PROMPTS``: below the window, the decode wrapping the ring at
    round 33; past it, through the prefill's re-layout), each wave two
@@ -219,8 +228,25 @@ Phases, in order; any failure raises and the script exits non-zero:
    bound, tokens/s, TTFT, the busy share, the attention's in-situ µs a
    layer and the ring's cache bytes against a full cache's, beside the
    card's name and power limit; the phase's wall time.
-9. Print the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
-   line last.
+8b. ``[serve] olmo-1b-kvq``: olmo-1b at full width (as in 4) with the int8
+   KV cache (``kv_quant``: int8 payloads and one int8 exponent a slot and
+   kv head, read by the attention kernel as int8), 16 requests of
+   2048-token prompts and 64 new tokens on 8 slots (2120-slot cache),
+   beside the same traffic over the bf16 cache (``KVQ_BF16``).  (a) both
+   paths eager and captured as in 4, and a profiled captured block of
+   each cache; (b) the teacher-forced check of 5 within ``LOGIT_ATOL``;
+   (c) the int8 cache's kernel path against the bf16 cache's on the same
+   tokens, max |diff| and argmax agreement reported against
+   ``KVQ_CACHE_BAR``, and each path's distance over the first engine
+   step to the bf16-cache model served in float32 on those tokens; (d)
+   fault probes above the bar: layer 0's exponents one too large, the
+   payloads read as uint8; (e) ``--multi-pu 2`` on the shared card (M =
+   1, captured): the single-PU captured kernel run's streams.  Both
+   caches' round, tokens/s, TTFT, busy share, the attention's in-situ µs
+   a layer and the cache's bytes; the phase's wall time.
+9. Print the ``{"kernels": [...]}`` line (``fused_decode_attention_int8``:
+   the int8 variant, its launches those of 8b's captured kernel run),
+   then the ``{"ok": true, ...}`` line last.
 """
 from __future__ import annotations
 
@@ -277,15 +303,21 @@ FAMILY_LOGIT_ATOL = {"starcoder2-15b": LOGIT_ATOL, "nemotron-4-15b": 0.35, "gemm
 FAMILY_PROMPT_LEN = {"gemma3-12b": 1536}
 # [serve] mixtral-8x7b-ring: the reference's own ring construction
 # (tests/test_kv_ring.py builds it at smoke size) at full width:
-# mixtral-8x7b's dense widths (32 layers, d_model 4096, 32 heads over 8,
-# d_ff 14336, vocab 32000) with its 4096-token window and a ring KV cache
-# of 4096 slots; "-full" is the same model with a max_len-slot cache,
-# masked by the window alone, against which the ring is held.
+# mixtral-8x7b's dense widths (d_model 4096, 32 heads over 8, d_ff 14336,
+# vocab 32000) with its 4096-token window and a ring KV cache of 4096
+# slots; "-full" is the same model with a max_len-slot cache, masked by
+# the window alone, against which the ring is held.
+# Depth cuts that keep the script within its time (every width, window
+# and request kept): the ring model serves 16 of mixtral-8x7b's 32
+# layers, gemma3-12b 24 of its 48 (four of its groups of five local
+# layers and one global).
+RING_LAYERS, GEMMA_LAYERS = 16, 24
+RING, RING_FULL = "mixtral-8x7b-ring", "mixtral-8x7b-full"
 VARIANTS = {
-    "mixtral-8x7b-ring": ("mixtral-8x7b", dict(n_experts=0, top_k=0, kv_ring=True)),
-    "mixtral-8x7b-full": ("mixtral-8x7b", dict(n_experts=0, top_k=0)),
+    RING: ("mixtral-8x7b", dict(n_experts=0, top_k=0, kv_ring=True, n_layers=RING_LAYERS)),
+    RING_FULL: ("mixtral-8x7b", dict(n_experts=0, top_k=0, n_layers=RING_LAYERS)),
+    "gemma3-12b": ("gemma3-12b", dict(n_layers=GEMMA_LAYERS)),
 }
-RING, RING_FULL = VARIANTS
 # its prompts alternate below and past the window: a 4064-token prompt
 # prefills under it and its decode wraps the ring at round 33; a 4160-token
 # one goes through the prefill's re-layout, which drops 64 positions
@@ -302,17 +334,33 @@ RING_LOGIT_ATOL = 0.55
 # engine steps the full-cache run serves: the first wave's prefill and its
 # decode blocks, past the 4064-token lanes' wrap at round 33
 RING_FULL_STEPS = 2
-FAMILY_PROMPT_LEN.update({v: max(RING_PROMPTS) for v in VARIANTS})
+FAMILY_PROMPT_LEN.update({v: max(RING_PROMPTS) for v in (RING, RING_FULL)})
 # its attention in the kernel phase: 32 query heads over 8 (G = 4), hd 128,
 # d_model 4096, the ring's 4096 slots, at round 40 of a wave (past the wrap)
 RING_HEADS, RING_D, RING_SK, RING_ROUND = (32, 8), 4096, 4096, 40
 # gemma3-12b's attention: 16 query heads over 8 (G = 2), head_dim 256, d_model
 # 3840, over its serve phase's cache (1536 + 64 + 8 slots), local window 1024
 GEMMA_HEADS, GEMMA_HD, GEMMA_D, GEMMA_SK, GEMMA_WINDOW = (16, 8), 256, 3840, 1608, 1024
+# [serve] olmo-1b-kvq: olmo-1b at full width with the int8 KV cache
+# (kv_quant), 2048-token prompts (at 512 the cache is a fifth of a round's
+# bytes; at 2048 the bf16 cache is as large as the weights), beside the
+# same model and traffic with the bf16 cache ("olmo-1b-2048").  Its cache
+# holds 2048 + 64 + 8 slots (the launcher's max_len), the kernel phase's
+# row 2e the same.
+VARIANTS.update({"olmo-1b-kvq": ("olmo-1b", dict(kv_quant=True)), "olmo-1b-2048": ("olmo-1b", {})})
+KVQ, KVQ_BF16 = "olmo-1b-kvq", "olmo-1b-2048"
+KVQ_PROMPT = 2048
+KVQ_SK = KVQ_PROMPT + MAX_NEW + 8
+FAMILY_PROMPT_LEN.update({KVQ: KVQ_PROMPT, KVQ_BF16: KVQ_PROMPT})
+# The int8 cache's kernel path against the bf16 cache's on the same tokens:
+# a bar fixed before the first card run, reported and not moved (the float32
+# distances beside it say whether a gap is the quantization's).
+KVQ_CACHE_BAR = 0.5
 AIMC_REFRESHES = 5          # timed LM NIU refreshes; the median is kept
 SOURCES = {
     "fused_qkv": "src/repro_torch/kernels/csrc/decode.cu",
     "fused_decode_attention": "src/repro_torch/kernels/csrc/decode.cu",
+    "fused_decode_attention_int8": "src/repro_torch/kernels/csrc/decode.cu",
     "fused_mlp": "src/repro_torch/kernels/csrc/decode.cu",
     "int8_gemm": "src/repro_torch/kernels/csrc/pu.cu",
     "im2col": "src/repro_torch/kernels/csrc/pu.cu",
@@ -321,6 +369,7 @@ SOURCES = {
 REPLACES = {
     "fused_qkv": "src/repro/kernels/decode.py:210",
     "fused_decode_attention": "src/repro/kernels/decode.py:416",
+    "fused_decode_attention_int8": "src/repro/kernels/decode.py:416",
     "fused_mlp": "src/repro/kernels/decode.py:550",
     "int8_gemm": "src/repro/kernels/int8_gemm.py:147",
     "im2col": "src/repro/kernels/im2col.py:65",
@@ -352,14 +401,15 @@ RESNET_RTOL, RESNET_ATOL = 1e-5, 0.25
 
 
 def attn_registers(report: str) -> dict:
-    """{(G, hd): (registers, spill store bytes, spill load bytes)} of each
-    ``attn_kernel`` instantiation in an ``nvcc -Xptxas -v`` report."""
+    """{(G, hd, int8): (registers, spill store bytes, spill load bytes)} of
+    each ``attn_kernel`` instantiation (``int8``: the int8-K/V variant) in
+    an ``nvcc -Xptxas -v`` report."""
     out, cur, spills = {}, None, (0, 0)
     for line in report.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties for) '?(\S+?)'?(?: for|$)", line)
         if m:
-            k = re.search(r"attn_kernelILi(\d+)ELi(\d+)E", m.group(1))
-            cur = (int(k.group(1)), int(k.group(2))) if k else None
+            k = re.search(r"attn_kernelILi(\d+)ELi(\d+)ELb([01])E", m.group(1))
+            cur = (int(k.group(1)), int(k.group(2)), k.group(3) == "1") if k else None
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m and cur:
@@ -648,6 +698,8 @@ def kernel_phase(torch, timer, rates):
     rows["fused_decode_attention"]["head_dim_256"] = head_dim_256_attention(
         torch, timer, rates, rnd, close)
     rows["fused_decode_attention"]["ring"] = ring_attention(torch, timer, rates, rnd, close)
+    q8 = int8_attention(torch, timer, rates, rnd, close)
+    rows["fused_decode_attention_int8"] = dict(q8["2e"], head_dim_256=q8["2f"], ring=q8["2g"])
 
     # --- fused_mlp -------------------------------------------------------------
     wu, wg, wd = rnd(D, FF, scale=0.02), rnd(D, FF, scale=0.02), rnd(FF, D, scale=0.02)
@@ -878,6 +930,141 @@ def ring_attention(torch, timer, rates, rnd, close):
           f"({nb1 / t1 / 1e9} TB/s of the {used} of {B * sk} slots the lanes may attend) grid "
           f"{B * hkv} (lane, kv-head) x {plan.splits} chunks of {plan.chunk} slots", flush=True)
     return row
+
+
+def int8_attention(torch, timer, rates, rnd, close):
+    """Rows 2e-2g: the attention kernel's int8-K/V variant (``kv_quant``)
+    at olmo-1b's widths over ``[serve] olmo-1b-kvq``'s cache (2e: G = 1,
+    hd 128, d 2048, ``KVQ_SK`` slots, the lanes past their 2048-token
+    prompts), at gemma3-12b's (2f: G = 2, hd 256, d 3840, Sk 1608, a local
+    layer's window) and at mixtral-8x7b-ring's (2g: G = 4, hd 128, d 4096,
+    the ring's 4096 slots at its decode's positions, past the wrap).  The
+    cache is ``kv_quantize`` of random rows, its slots past each lane's
+    length as ``init_cache`` leaves them (payload 0, exponent -126).  In
+    every case: equal bits to the bf16 kernel on ``kv_dequantize`` of the
+    same cache, within ``ATOL`` of the plain version, equal bits on a
+    second call.  Times of the first case: ``Timer``, ``graph_ms`` (over
+    copies of the int8 cache, its exponents and wo), the plain version,
+    the library (``kv_dequantize`` + SDPA + ``@ wo``), launch 1 alone, and
+    the bf16 kernel's ``graph_ms`` on the dequantized cache beside it; the
+    bound counts the int8 K/V and exponents of the attended slots, wo,
+    q and the output."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode, ref
+    from repro_torch.models import transformer
+
+    dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    bf = torch.bfloat16
+
+    def at(base, step=8):
+        return torch.tensor([base + step * i for i in range(B)], dtype=torch.int32, device=dev)
+
+    def win(w):
+        return torch.tensor(w, dtype=torch.int32, device=dev)
+
+    ring_pos = torch.tensor([RING_PROMPTS[i % 2] + RING_ROUND - 1 for i in range(B)],
+                            dtype=torch.int32, device=dev)
+    vlen = {"2e": at(KVQ_PROMPT + 1), "2f": at(1540), "2g": ring_pos + 1}
+    specs = {
+        "2e": ((HQ, HKV), HD, D, KVQ_SK, {
+            "path": dict(q_positions=vlen["2e"] - 1, kv_valid_len=vlen["2e"],
+                         window_arr=win(ref.BIG_WINDOW)),
+            "no_valid_slot": dict(q_positions=vlen["2e"] - 1,
+                                  kv_valid_len=torch.cat([vlen["2e"][:1] * 0, vlen["2e"][1:]])),
+        }),
+        "2f": (GEMMA_HEADS, GEMMA_HD, GEMMA_D, GEMMA_SK, {
+            "local": dict(q_positions=vlen["2f"] - 1, kv_valid_len=vlen["2f"],
+                          window_arr=win(GEMMA_WINDOW)),
+            "global": dict(q_positions=vlen["2f"] - 1, kv_valid_len=vlen["2f"],
+                           window_arr=win(ref.BIG_WINDOW)),
+        }),
+        "2g": (RING_HEADS, HD, RING_D, RING_SK, {
+            "path_past_wrap": dict(q_positions=ring_pos, kv_valid_len=ring_pos + 1,
+                                   window_arr=win(RING_SK),
+                                   kv_positions=transformer.ring_positions(ring_pos, RING_SK)),
+            "first_round": dict(q_positions=ring_pos - RING_ROUND + 1,
+                                kv_valid_len=ring_pos - RING_ROUND + 2, window_arr=win(RING_SK),
+                                kv_positions=transformer.ring_positions(
+                                    ring_pos - RING_ROUND + 1, RING_SK)),
+        }),
+    }
+    rows = {}
+    for row, ((hq, hkv), hd, d, sk, cases) in specs.items():
+        G = hq // hkv
+        q = rnd(B, hq, hd)
+        wo, bo = rnd(hq * hd, d, scale=0.02), rnd(d, scale=0.02)
+        written = (torch.arange(sk, device=dev)[None] < vlen[row][:, None])[:, :, None]
+        if row == "2g":                                 # past the wrap every slot is written
+            written = torch.ones_like(written)
+        (kq, ke), (vq, ve) = (ref.kv_quantize(rnd(B, sk, hkv, hd)) for _ in range(2))
+        for t, fill in ((kq, 0), (vq, 0), (ke, -126), (ve, -126)):
+            t.masked_fill_(~written if t.dim() == 3 else ~written[..., None], fill)
+        k, v = ref.kv_dequantize(kq, ke, bf), ref.kv_dequantize(vq, ve, bf)
+        ex = dict(k_exp=ke, v_exp=ve)
+        err = 0.0
+        for name, ckw in cases.items():
+            for bias in (bo, None):
+                got = decode.fused_decode_attention(q, kq, vq, wo, bias, **ex, **ckw)
+                want = decode.fused_decode_attention(q, k, v, wo, bias, **ckw)
+                assert torch.equal(got, want), \
+                    f"int8 attention {row} {name}: not the bf16 kernel's bits on the dequantized cache"
+                err = max(err, close(got, ref.decode_attention_ref(q, kq, vq, wo, bias, **ex, **ckw),
+                                     f"int8 attention {row} {name} bias={bias is not None}"))
+                again = decode.fused_decode_attention(q, kq, vq, wo, bias, **ex, **ckw)
+                assert torch.equal(got, again), f"int8 attention {row} {name}: two calls differ"
+        tkw = next(iter(cases.values()))
+        mask = ref.decode_mask(B, sk, dev, **tkw)
+        used = int(mask.sum().item())
+        kv_bytes = 2 * used * hkv * (hd + 1)            # int8 payloads and one exponent a row
+        plan = decode.attn_plan(B, hkv, sk, hd, sms)
+        nb1 = nbytes(q, vlen[row]) + kv_bytes + 2 * B * hq * hd
+        t1 = timer(lambda: decode._attention_ctx(q, kq, vq, **ex, **tkw))
+        t_bound, by = bound(rates, nbytes(q, wo, bo, vlen[row]) + kv_bytes + 2 * B * d,
+                            4 * used * hq * hd + 2 * B * hq * hd * d)
+        bf16_bound = bound(rates, nbytes(q, wo, bo, vlen[row]) + 2 * used * hkv * hd * 2 + 2 * B * d,
+                           4 * used * hq * hd + 2 * B * hq * hd * d)[0]
+        smask = mask[:, None, None, :]
+
+        def library(q=q, kq=kq, vq=vq, ke=ke, ve=ve, wo=wo, bo=bo, smask=smask, hq=hq, hd=hd):
+            kt = ref.kv_dequantize(kq, ke, bf).transpose(1, 2)
+            vt = ref.kv_dequantize(vq, ve, bf).transpose(1, 2)
+            ctx = F.scaled_dot_product_attention(q[:, :, None], kt, vt, attn_mask=smask,
+                                                 enable_gqa=True)
+            return ctx.reshape(B, hq * hd) @ wo + bo
+
+        copies = [(kq, vq, ke, ve, wo)] + [tuple(t.clone() for t in (kq, vq, ke, ve, wo))
+                                           for _ in range(GRAPH_COPIES - 1)]
+        bcopies = [(k, v, wo)] + [tuple(t.clone() for t in (k, v, wo)) for _ in range(GRAPH_COPIES - 1)]
+        r = dict(
+            heads=hq, kv_heads=hkv, head_dim=hd, d_model=d, cache_slots=sk, max_abs_err=err,
+            ms=timer(lambda: decode.fused_decode_attention(q, kq, vq, wo, bo, **ex, **tkw)),
+            graph_ms=graph_ms(torch, [
+                lambda c=c: decode.fused_decode_attention(q, c[0], c[1], c[4], bo, k_exp=c[2],
+                                                          v_exp=c[3], **tkw)
+                for c in copies] * GRAPH_PASSES),
+            plain_ms=timer(lambda: ref.decode_attention_ref(q, kq, vq, wo, bo, **ex, **tkw)),
+            library_ms=timer(library), bound_ms=t_bound, bound_by=by,
+            launch1_ms=t1, launch1_bound_ms=bound(rates, nb1)[0],
+            bf16_graph_ms=graph_ms(torch, [lambda c=c: decode.fused_decode_attention(q, *c, bo, **tkw)
+                                           for c in bcopies] * GRAPH_PASSES),
+            bf16_bound_ms=bf16_bound,
+        )
+        del copies, bcopies
+        rows[row] = r
+        print(f"[kernel] fused_decode_attention int8 K/V row {row} (G={G}: {hq} heads over {hkv}, hd "
+              f"{hd}, d {d}, Sk {sk}): equal bits to the bf16 kernel on the dequantized cache and on "
+              f"a second call in all {len(cases)} cases ({', '.join(cases)}), with and without bo; "
+              f"max_abs_err={err} (plain version) kernel_ms={r['ms']} graph_ms={r['graph_ms']} "
+              f"plain_ms={r['plain_ms']} library_ms={r['library_ms']} (kv_dequantize + SDPA + @ wo) "
+              f"bound_ms={t_bound} ({by}; {kv_bytes} B of int8 K/V and exponents of the {used} of "
+              f"{B * sk} slots the lanes may attend); launch 1 (attn_kernel<{G}, {hd}, true>) "
+              f"kernel_ms={t1} bound_ms={r['launch1_bound_ms']} ({nb1 / t1 / 1e9} TB/s) grid "
+              f"{B * hkv} (lane, kv-head) x {plan.splits} chunks of {plan.chunk} slots; the bf16 "
+              f"kernel on the dequantized cache graph_ms={r['bf16_graph_ms']} bound_ms={bf16_bound}",
+              flush=True)
+    return rows
 
 
 def ring_projections(torch, timer, rates, rnd, close):
@@ -1514,7 +1701,7 @@ def serve_engine(serve, kernels: bool, eager: bool = False, extra=(), arch="olmo
                                params["embed"].device, eager=eager)
     if warm:
         engine.warmup()
-    if arch in VARIANTS:
+    if arch in (RING, RING_FULL):
         # the ring's traffic: prompts alternating in length
         import numpy as np
 
@@ -1788,8 +1975,10 @@ def per_stage_devices_phase(torch, want, want_rounds):
 def staged_forced(torch, label, streams, m, want, want_rounds, extra=MULTI_PU):
     """Hold a staged engine's logits (launcher arguments ``extra``, M =
     ``m``) to the single-PU kernel path's at every step of every request,
-    teacher-forced on ``want``, and tie the timed staged run's ``streams``
-    to them."""
+    teacher-forced on ``want``, and the timed staged run's ``streams`` to
+    ``want``: every lane group's attention is split as the whole batch's
+    (``plan_lanes``), so each lane's sums run in the single-PU order and
+    the streams are equal."""
     got_streams, got_rounds, m_forced = logged_run(torch, True, feed=want, extra=extra)
     assert m_forced == m, (m_forced, m)
     diffs, flips = compare_rounds(torch, want_rounds, got_rounds)
@@ -1800,9 +1989,8 @@ def staged_forced(torch, label, streams, m, want, want_rounds, extra=MULTI_PU):
           f"{statistics.median(d)}, argmax differs at {len(flips)} steps (limit {LOGIT_ATOL}); "
           f"greedy streams equal: {same}/{REQUESTS}", flush=True)
     assert len(d) == REQUESTS * (MAX_NEW - 1) and d[-1] <= LOGIT_ATOL, d[-1]
-    tie_streams(streams, want, got_streams)
-    print(f"[multi-pu] {label}: the timed run's tokens up to each request's first divergence "
-          f"from the single-PU streams are the teacher-forced run's", flush=True)
+    assert streams == want and got_streams == want, \
+        f"{label}: staged M={m} served {same}/{REQUESTS} of the single-PU greedy streams"
 
 
 def pipeline_resnet_phase(torch, params):
@@ -2026,7 +2214,9 @@ def fault_phase(torch, want_streams, want_rounds, arch="olmo-1b", bar=LOGIT_ATOL
     A probe serves the first ``PROBE_STEPS`` engine steps (the first
     wave's prefill and decode block) and is held to the same steps of the
     checked run.  A ring config's attention masks by the ring's slot
-    positions, not by ``kv_valid_len``: its probe makes them linear."""
+    positions, not by ``kv_valid_len``: its probe makes them linear.  An
+    int8 cache's probes break what the int8 cache adds: one layer's
+    exponents, and the payloads' sign."""
     from repro_torch.kernels import common, dispatch, ref
     from repro_torch.models import transformer
 
@@ -2048,8 +2238,28 @@ def fault_phase(torch, want_streams, want_rounds, arch="olmo-1b", bar=LOGIT_ATOL
         s = torch.arange(slots, dtype=torch.int32, device=pos.device)
         return s.expand(*pos.shape, slots).contiguous()
 
+    calls = [0]
+
+    def exponents_off(cfg, p, q, k, v, *, k_exp, v_exp, **kw):
+        """Layer 0's exponents one too large (its K and V read doubled)."""
+        if calls[0] % cfg.n_layers == 0:
+            k_exp, v_exp = k_exp + 1, v_exp + 1
+        calls[0] += 1
+        return attn(cfg, p, q, k, v, k_exp=k_exp, v_exp=v_exp, **kw)
+
+    def payloads_unsigned(cfg, p, q, k, v, *, k_exp, v_exp, **kw):
+        """The int8 payloads' bytes read as uint8, dequantized exactly (a
+        value up to 255 takes 8 bits), through the bf16 kernel."""
+        k, v = (ref.kv_dequantize(t.view(torch.uint8), e, q.dtype) for t, e in ((k, k_exp), (v, v_exp)))
+        return attn(cfg, p, q, k, v, **kw)
+
     probes = [("rope one position late", dispatch, "decode_qkv", rope_late)]
-    if transformer.ring_applies(cfg):
+    if cfg.kv_quant:
+        probes = [("layer 0's K and V exponents one too large", dispatch, "decode_attention",
+                   exponents_off),
+                  ("the int8 payloads read as uint8", dispatch, "decode_attention",
+                   payloads_unsigned)]
+    elif transformer.ring_applies(cfg):
         probes.append(("ring positions linear (each slot's index)", transformer, "ring_positions",
                        linear_positions))
     else:
@@ -2060,6 +2270,7 @@ def fault_phase(torch, want_streams, want_rounds, arch="olmo-1b", bar=LOGIT_ATOL
                            windows_dropped))
     pre = "" if arch == "olmo-1b" else f"{arch} "
     for name, module, attr, fn in probes:
+        calls[0] = 0
         setattr(module, attr, fn)
         try:
             _, rounds, _ = logged_run(torch, kernels=True, feed=want_streams, arch=arch,
@@ -2078,8 +2289,8 @@ def fault_phase(torch, want_streams, want_rounds, arch="olmo-1b", bar=LOGIT_ATOL
 
 def family_phase(torch, rates, arch: str) -> dict:
     """``[serve] <arch>``: a dense decoder of step 9 at its published
-    widths with seeded random bf16 weights, nothing cut, served with the
-    olmo-1b phase's requests (gemma3-12b's prompts 1536 tokens long,
+    widths with seeded random bf16 weights (gemma3-12b's depth cut,
+    ``GEMMA_LAYERS``), served with the olmo-1b phase's requests (gemma3-12b's prompts 1536 tokens long,
     ``FAMILY_PROMPT_LEN``): both paths eager and captured
     (``serve_runs``), a profiled captured block, the kernel path
     teacher-forced to the composed path within the arch's bar, and the
@@ -2100,7 +2311,8 @@ def family_phase(torch, rates, arch: str) -> dict:
     print(f"[serve] {arch}: wall s of the timed runs, profile, teacher-forced runs, probes: "
           f"{[b - a for a, b in zip([t0] + walls, walls)]}", flush=True)
     k = runs["kernels"]
-    print(f"[serve] {arch}: captured kernel path {k['round_s'] * 1e3} ms a round, "
+    print(f"[serve] {arch} ({model_cfg(arch).n_layers} layers): captured kernel path "
+          f"{k['round_s'] * 1e3} ms a round, "
           f"{k['tokens_per_s']} tokens/s, mean TTFT {k['ttft_s']} s, device busy share of a "
           f"captured block {prof['busy_ms'] / prof['window_ms']} (composed path captured "
           f"{runs['composed']['round_s'] * 1e3} ms); teacher-forced bar {bar}; phase wall "
@@ -2126,8 +2338,6 @@ def ring_phase(torch, rates) -> dict:
     ``--multi-pu 2`` on the shared card (M = 1, captured): the single-PU
     captured kernel run's streams.  Returns the captured kernel run's
     launches."""
-    from repro_torch.launch import serve
-
     t0 = time.perf_counter()
     bar = RING_LOGIT_ATOL
     cfg = model_cfg(RING)
@@ -2177,29 +2387,14 @@ def ring_phase(torch, rates) -> dict:
     free(torch)
     walls.append(time.perf_counter())
     # (e) two stages on the shared card: M = 1, captured
-    engine = serve_engine(serve, True, False, MULTI_PU, arch=RING)
-    st, launches, captures = served(torch, engine)
-    staged = engine._staged
-    streams = {r.uid: r.out_tokens for r in engine.completed}
-    same = sum(streams[u] == s for u, s in k["streams"].items())
-    print(f"[ring] (e) --multi-pu 2 (M = {staged.n_groups} on the shared card, captured): round "
-          f"{st['mean_decode_round_s'] * 1e3} ms against the single-PU captured round "
-          f"{k['round_s'] * 1e3} ms, tokens_per_s={st['tokens_per_s']}, graphs captured at "
-          f"warmup {captures}, after 0; greedy streams {same}/{REQUESTS} equal to the single-PU "
-          f"captured kernel run's", flush=True)
-    assert engine.stages_share_card and staged.coalesce and staged.n_groups == 1, staged.n_groups
-    assert captures == len(staged.graphs) == 6, captures
-    assert all(n == cfg.n_layers * engine.decode_rounds for n in launches.values()), launches
-    assert streams == k["streams"], "the staged ring served other tokens than the single-PU ring"
-    del engine, staged
-    free(torch)
+    staged_shared_card(torch, RING, k, "[ring] (e)")
     walls.append(time.perf_counter())
     kv_layer = k["cache_bytes"] // cfg.n_layers             # a layer's ring K and V
     attn_us = prof["kernel_ms"].get("attn_kernel", 0.0) * 1e3 / cfg.n_layers
     print(f"[serve] {RING}: wall s of the timed runs, profile, teacher-forced runs, ring vs full "
           f"cache, float32 distance, probes, multi-pu: "
           f"{[b - a for a, b in zip([t0] + walls, walls)]}", flush=True)
-    print(f"[serve] {RING}: captured kernel path {k['round_s'] * 1e3} ms a round, "
+    print(f"[serve] {RING} ({cfg.n_layers} layers): captured kernel path {k['round_s'] * 1e3} ms a round, "
           f"{k['tokens_per_s']} tokens/s, mean TTFT {k['ttft_s']} s, device busy share of a "
           f"captured block {prof['busy_ms'] / prof['window_ms']} (composed path captured "
           f"{runs['composed']['round_s'] * 1e3} ms); attention in situ {attn_us} us a layer "
@@ -2208,6 +2403,135 @@ def ring_phase(torch, rates) -> dict:
           f"cache {k['cache_bytes']} B as a ring against "
           f"{k['cache_bytes'] * k['max_len'] // cfg.window} B as a full cache; teacher-forced "
           f"bar {bar}; phase wall {time.perf_counter() - t0} s; {card_line()}", flush=True)
+    return k["launches"]
+
+
+def staged_shared_card(torch, arch, k, tag):
+    """``--multi-pu 2`` on the shared card (M = 1, captured) for ``arch``:
+    no capture after warmup, 16 launches a layer a round, and the greedy
+    streams of ``k``, the single-PU captured kernel run."""
+    from repro_torch.launch import serve
+
+    cfg = model_cfg(arch)
+    engine = serve_engine(serve, True, False, MULTI_PU, arch=arch)
+    st, launches, captures = served(torch, engine)
+    staged = engine._staged
+    streams = {r.uid: r.out_tokens for r in engine.completed}
+    same = sum(streams[u] == s for u, s in k["streams"].items())
+    print(f"{tag} --multi-pu 2 (M = {staged.n_groups} on the shared card, captured): round "
+          f"{st['mean_decode_round_s'] * 1e3} ms against the single-PU captured round "
+          f"{k['round_s'] * 1e3} ms, tokens_per_s={st['tokens_per_s']}, graphs captured at "
+          f"warmup {captures}, after 0; greedy streams {same}/{REQUESTS} equal to the single-PU "
+          f"captured kernel run's", flush=True)
+    assert engine.stages_share_card and staged.coalesce and staged.n_groups == 1, staged.n_groups
+    assert captures == len(staged.graphs) == 6, captures
+    assert all(n == cfg.n_layers * engine.decode_rounds for n in launches.values()), launches
+    assert streams == k["streams"], f"{arch}: the staged run served other tokens than the single-PU run"
+    del engine, staged
+    free(torch)
+
+
+def kvq_phase(torch, rates) -> dict:
+    """``[serve] olmo-1b-kvq``: olmo-1b at full width with the int8 KV cache
+    (``kv_quant``), seeded random bf16 weights, nothing cut, 16 requests of
+    2048-token prompts and 64 new tokens on 8 slots, beside the same
+    traffic with the bf16 cache (``KVQ_BF16``, captured kernel path).  (a)
+    both paths eager and captured (``serve_runs``): captured streams equal
+    eager, no capture after warmup; a profiled captured block of each
+    cache; (b) the kernel path teacher-forced to the composed path within
+    ``LOGIT_ATOL``; (c) the int8 cache's kernel path against the bf16
+    cache's on the same tokens, reported against ``KVQ_CACHE_BAR``, with
+    the greedy agreement; each path's distance over the first engine step
+    to the bf16-cache model served in float32 on those tokens (the bf16
+    cache's kernel and composed paths, the int8 cache's kernel and
+    composed paths); (d) the fault probes above the bar: one layer's
+    exponents one too large, the payloads read as uint8; (e) ``--multi-pu
+    2`` on the shared card (M = 1, captured): the single-PU captured
+    kernel run's streams.  Returns the captured kernel run's launches."""
+    from repro_torch.launch import serve
+
+    t0 = time.perf_counter()
+    bar = LOGIT_ATOL
+    cfg = model_cfg(KVQ)
+    runs = serve_runs(torch, rates, KVQ)
+    k = runs["kernels"]
+    # the bf16 cache, same model and traffic: the captured kernel path
+    engine = serve_engine(serve, True, arch=KVQ_BF16)
+    st, launches, captures = served(torch, engine)
+    wb, kvb = round_bytes(engine)
+    plain = dict(streams={r.uid: r.out_tokens for r in engine.completed}, launches=launches,
+                 ttft_s=st["mean_ttft_s"], round_s=st["mean_decode_round_s"],
+                 tokens_per_s=st["tokens_per_s"], cache_bytes=kvb)
+    assert captures == 6 and all(n == cfg.n_layers * engine.decode_rounds for n in launches.values())
+    del engine
+    free(torch)
+    same = sum(plain["streams"][u] == s for u, s in k["streams"].items())
+    print(f"[kvq] bf16 cache, kernels, captured: tokens_per_s={plain['tokens_per_s']} mean_ttft_s="
+          f"{plain['ttft_s']} mean_decode_round_s={plain['round_s']} (bound "
+          f"{(wb + kvb) / rates['bytes'] * 1e3} ms: weights {wb} B + KV cache {kvb} B); the int8 "
+          f"cache's captured kernel run serves {same}/{REQUESTS} of its greedy streams", flush=True)
+    walls = [time.perf_counter()]
+    prof = profile_phase(torch, runs, KVQ, modes=(False,))[f"{KVQ} captured"]
+    prof_plain = profile_phase(torch, {"kernels": plain}, KVQ_BF16, modes=(False,))[
+        f"{KVQ_BF16} captured"]
+    walls.append(time.perf_counter())
+    # (b) kernel vs composed, both over the int8 cache
+    want_streams, want_rounds, got_rounds = forced_phase(torch, runs, KVQ, bar)
+    walls.append(time.perf_counter())
+    # (c) the int8 cache's kernel path against the bf16 cache's
+    _, plain_rounds, _ = logged_run(torch, True, feed=want_streams, arch=KVQ_BF16)
+    diffs, flips = compare_rounds(torch, plain_rounds, got_rounds)
+    d = sorted(diffs.values())
+    print(f"[kvq] (c) int8 cache against bf16 cache, kernel path on both, on the composed int8 "
+          f"run's tokens: {len(d)} (request, step) logit vectors, max |diff| {d[-1]}, median "
+          f"{statistics.median(d)}, p99 {d[int(0.99 * (len(d) - 1))]}; argmax equal at "
+          f"{len(d) - len(flips)} of {len(d)} steps; bar {KVQ_CACHE_BAR} (fixed before the first "
+          f"card run): {'met' if d[-1] <= KVQ_CACHE_BAR else 'MISSED'}", flush=True)
+    walls.append(time.perf_counter())
+    # each path's distance to the bf16-cache model served in float32
+    _, f32_rounds, _ = logged_run(torch, False, feed=want_streams, arch=KVQ_BF16, f32=True,
+                                  steps=PROBE_STEPS)
+    _, plain_composed, _ = logged_run(torch, False, feed=want_streams, arch=KVQ_BF16,
+                                      steps=PROBE_STEPS)
+    n = len(f32_rounds)
+    dist = {}
+    for path, rounds in (("bf16 cache composed", plain_composed), ("bf16 cache kernel", plain_rounds),
+                         ("int8 cache composed", want_rounds), ("int8 cache kernel", got_rounds)):
+        dd = sorted(compare_rounds(torch, f32_rounds, rounds[:n])[0].values())
+        dist[path] = dd[-1]
+        print(f"[kvq] float32 distance over the first {PROBE_STEPS} engine step ({len(dd)} "
+              f"(request, step) logit vectors): the {path} path against the float32 composed run "
+              f"(bf16 cache model widened) on the same tokens: max |diff| {dd[-1]}, median "
+              f"{statistics.median(dd)}, p99 {dd[int(0.99 * (len(dd) - 1))]}", flush=True)
+    print(f"[kvq] float32 distance: the bf16 cache's kernel path is "
+          f"{'no farther' if dist['bf16 cache kernel'] <= dist['bf16 cache composed'] else 'FARTHER'}"
+          f" than its composed path ({dist['bf16 cache kernel']} against "
+          f"{dist['bf16 cache composed']}); the int8 cache's kernel path "
+          f"{dist['int8 cache kernel']}", flush=True)
+    del f32_rounds, plain_composed, plain_rounds, got_rounds
+    free(torch)
+    walls.append(time.perf_counter())
+    # (d) the int8 cache's exponents and payloads broken
+    fault_phase(torch, want_streams, want_rounds, KVQ, bar)
+    del want_rounds
+    free(torch)
+    walls.append(time.perf_counter())
+    # (e) two stages on the shared card: M = 1, captured
+    staged_shared_card(torch, KVQ, k, "[kvq] (e)")
+    walls.append(time.perf_counter())
+    attn_us = {c: p["kernel_ms"].get("attn_kernel", 0.0) * 1e3 / cfg.n_layers
+               for c, p in (("int8", prof), ("bf16", prof_plain))}
+    print(f"[serve] {KVQ}: wall s of the timed runs, profiles, teacher-forced runs, int8 vs bf16 "
+          f"cache, float32 distance, probes, multi-pu: "
+          f"{[b - a for a, b in zip([t0] + walls, walls)]}", flush=True)
+    for c, r, p in (("int8", k, prof), ("bf16", plain, prof_plain)):
+        print(f"[serve] {KVQ}: {c} cache, captured kernel path {r['round_s'] * 1e3} ms a round, "
+              f"{r['tokens_per_s']} tokens/s, mean TTFT {r['ttft_s']} s, device busy share of a "
+              f"captured block {p['busy_ms'] / p['window_ms']}, attention in situ {attn_us[c]} us a "
+              f"layer, KV cache {r['cache_bytes']} B", flush=True)
+    print(f"[serve] {KVQ}: composed path over the int8 cache captured {runs['composed']['round_s'] * 1e3}"
+          f" ms a round; teacher-forced bar {bar}; phase wall {time.perf_counter() - t0} s; "
+          f"{card_line()}", flush=True)
     return k["launches"]
 
 
@@ -2556,10 +2880,11 @@ def main() -> int:
     for src in libs:
         print(build.ptxas_report(src).read_text()[-4000:], flush=True)
     regs = attn_registers(build.ptxas_report("decode").read_text())
-    for (g, hd), (n, st, ld) in sorted(regs.items()):
-        print(f"[build] attn_kernel<{g}, {hd}>: {n} registers, {st} bytes spill stores, {ld} bytes "
-              f"spill loads", flush=True)
-    assert {(g, hd) for g in (1, 2, 4, 6, 8, 12) for hd in (32, 64, 128, 256)} <= set(regs), regs
+    for (g, hd, q8), (n, st, ld) in sorted(regs.items()):
+        print(f"[build] attn_kernel<{g}, {hd}, {str(q8).lower()}>: {n} registers, {st} bytes spill "
+              f"stores, {ld} bytes spill loads", flush=True)
+    assert {(g, hd, q8) for g in (1, 2, 4, 6, 8, 12) for hd in (32, 64, 128, 256)
+            for q8 in (False, True)} <= set(regs), regs
 
     rates = card_rates(name)
     timer = Timer(torch, TIMED_CALLS)
@@ -2595,10 +2920,13 @@ def main() -> int:
     ring_launches = ring_phase(torch, rates)
     for kernel in ("fused_qkv", "fused_decode_attention", "fused_mlp"):
         rows[kernel]["ring"]["launches"] = ring_launches[kernel]
+    kvq_launches = kvq_phase(torch, rates)
     # each kernel's launches on its main path: the captured serve run, the
-    # captured ResNet-50 forward, the AIMC rounds
+    # captured ResNet-50 forward, the AIMC rounds, the int8 cache's captured
+    # serve run
     launches = {**runs["kernels"]["launches"], "niu_refresh": aimc["launches"]["niu_refresh"],
-                **{k: graph["launches"][k] for k in ("int8_gemm", "im2col")}}
+                **{k: graph["launches"][k] for k in ("int8_gemm", "im2col")},
+                "fused_decode_attention_int8": kvq_launches["fused_decode_attention"]}
     kernels = [
         dict(name=n, route="cuda", source=SOURCES[n], replaces=REPLACES[n],
              launches=launches[n], kernel_ms=r["ms"], **r)

@@ -62,7 +62,9 @@ def to_numpy(tree: Any) -> Any:
 
 
 def cache_from_jax(cache: Any, device=None) -> tuple:
-    """A JAX KV cache ``(k, v)`` of (L, B, S, KV, hd) arrays -> tensors."""
+    """A JAX KV cache -> tensors: ``(k, v)`` of (L, B, S, KV, hd) arrays,
+    or a ``kv_quant`` cache's four leaves, int8 payloads and their
+    (L, B, S, KV) int8 exponents, dtypes kept."""
     return tuple(to_torch(c, device) for c in cache)
 
 

@@ -49,6 +49,10 @@ SOURCES: Dict[str, Tuple[tuple, dict]] = {
             _P, _P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _F, _P,
             _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
         ),
+        "repro_decode_attention_q8": (
+            _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _F, _P,
+            _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+        ),
     }),
     "pu": ((), {
         "repro_int8_gemm": (

@@ -31,6 +31,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kMaxB = 8;        // decode rows a launch may carry
@@ -53,6 +55,22 @@ __device__ __forceinline__ void unpack8(const uint4& u, float* f) {
     f[2 * i] = t.x;
     f[2 * i + 1] = t.y;
   }
+}
+
+// 2^e for an int8 exponent e in [-126, 127], built from its bits: exact,
+// where exp2f need not be.
+__device__ __forceinline__ float pow2_exact(int e) { return __int_as_float((e + 127) << 23); }
+
+// 8 int8 payloads times 2^e as 8 bf16 (exact: |q| <= 128 takes 8 bits, and
+// q * 2^e with e >= -126 is a normal number or zero).
+__device__ __forceinline__ uint4 dequant8(uint2 raw, float scale) {
+  const int8_t* b = reinterpret_cast<const int8_t*>(&raw);
+  uint4 out;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&out);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    h[i] = __floats2bfloat162_rn((float)b[2 * i] * scale, (float)b[2 * i + 1] * scale);
+  return out;
 }
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -150,6 +168,16 @@ cudaError_t configure_once(Kernel kernel, bool* configured, int dyn_smem) {
 //   version (exp(-1e30 - -1e30)), so its ctx is the mean of V over all Sk
 //   slots: when every partial is empty, the merging block computes that.
 // All sums run in a fixed order, so two calls give equal bits.
+// The int8 cache (Q8; repro/models/transformer.py::kv_quantize): K and V
+// are int8 payloads with one int8 exponent per (slot, kv-head).  Each
+// warp loads its slots' 8-byte pieces and their exponents and writes
+// q * 2^e, exact in bf16, into the same shared-memory chunk the bf16
+// variant fills (K first, V after the scores); the chunk is sized in bf16
+// as there, and everything after the load is the same code, so the result
+// equals the bf16 variant's on the dequantized cache bit for bit while the
+// cache's bytes halve.  (Holding a warp's K and V pieces in registers, all
+// loads issued at once, timed no faster and spilled at (2, 128) and
+// (4, 256): PERF.md.)
 constexpr int kAtThreads = 128;                 // 4 warps
 constexpr int kAtWarps = kAtThreads / 32;
 constexpr int kAtMaxSlots = 256;                // slots a chunk may hold (decode.py ATTN_MAX_SLOTS)
@@ -162,10 +190,29 @@ __host__ __device__ inline int attn_smem_bytes(int C, int G, int HD) {
   return 2 * C * HD * 2 + kAtWarps * G * HD * 4 + G * C * 4 + G * C * 2;
 }
 
-template <int G, int HD>
+// The rows [w0, w1) of a chunk starting at slot c0 of an int8 cache (lane
+// and kv-head base `src`, their exponents from `ex`, one every Hkv bytes)
+// into `dst` ([C][HD] bf16) as q * 2^e, one 8-byte piece a lane at a time.
+template <int HD>
+__device__ __forceinline__ void dequant_rows(bf16* dst, const int8_t* src, const int8_t* ex,
+                                             int w0, int w1, int c0, size_t slot, int Hkv,
+                                             int lane) {
+  constexpr int LPS = HD / 8;
+  for (int i = lane; i < (w1 - w0) * LPS; i += 32) {
+    const int r = w0 + i / LPS, c = i % LPS;
+    const uint2 raw = __ldg(reinterpret_cast<const uint2*>(src + (size_t)(c0 + r) * slot + c * 8));
+    *reinterpret_cast<uint4*>(dst + r * HD + c * 8) =
+        dequant8(raw, pow2_exact(__ldg(ex + (size_t)(c0 + r) * Hkv)));
+  }
+}
+
+template <int G, int HD, bool Q8>
 __global__ void __launch_bounds__(kAtThreads)
-attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-            const bf16* __restrict__ v, const int* __restrict__ kvp, int kvp_stride,
+attn_kernel(const bf16* __restrict__ q,
+            const typename std::conditional<Q8, int8_t, bf16>::type* __restrict__ k,
+            const typename std::conditional<Q8, int8_t, bf16>::type* __restrict__ v,
+            const int8_t* __restrict__ ke, const int8_t* __restrict__ ve,
+            const int* __restrict__ kvp, int kvp_stride,
             const int* __restrict__ limit, int limit_stride,
             const int* __restrict__ qpos, const int* __restrict__ win_ptr,
             int win_static, int causal, float scale, bf16* __restrict__ ctx,
@@ -188,8 +235,11 @@ attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int S = gridDim.y, c0 = blockIdx.y * C, n = min(C, Sk - c0);
   const int Hq = Hkv * G;
   const size_t slot = (size_t)Hkv * HD;  // elements between cache slots
-  const bf16* kb = k + ((size_t)b * Sk * Hkv + kh) * HD;
-  const bf16* vb = v + ((size_t)b * Sk * Hkv + kh) * HD;
+  const auto* kb = k + ((size_t)b * Sk * Hkv + kh) * HD;
+  const auto* vb = v + ((size_t)b * Sk * Hkv + kh) * HD;
+  // the int8 cache's exponents of this lane and kv-head, one a slot
+  const int8_t* keb = Q8 ? ke + (size_t)b * Sk * Hkv + kh : nullptr;
+  const int8_t* veb = Q8 ? ve + (size_t)b * Sk * Hkv + kh : nullptr;
   float* part = ws + ((size_t)bk * S + blockIdx.y) * PART;
 
   // the slots of this chunk the lane may attend (decode.py:291-301)
@@ -222,16 +272,21 @@ attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     // takes them through scores, softmax and PV on its own
     const int per = (n + kAtWarps - 1) / kAtWarps;
     const int w0 = min(n, warp * per), w1 = min(n, w0 + per);
-    for (int i = lane; i < (w1 - w0) * LPS; i += 32) {
-      const int r = w0 + i / LPS, c = i % LPS;
-      cp_async16(smem_u32(ks + r * HD + c * 8), kb + (size_t)(c0 + r) * slot + c * 8, 16);
+    if constexpr (Q8) {
+      // dequantized as loaded; V after the scores
+      dequant_rows<HD>(ks, kb, keb, w0, w1, c0, slot, Hkv, lane);
+    } else {
+      for (int i = lane; i < (w1 - w0) * LPS; i += 32) {
+        const int r = w0 + i / LPS, c = i % LPS;
+        cp_async16(smem_u32(ks + r * HD + c * 8), kb + (size_t)(c0 + r) * slot + c * 8, 16);
+      }
+      cp_async_commit();
+      for (int i = lane; i < (w1 - w0) * LPS; i += 32) {
+        const int r = w0 + i / LPS, c = i % LPS;
+        cp_async16(smem_u32(vs + r * HD + c * 8), vb + (size_t)(c0 + r) * slot + c * 8, 16);
+      }
+      cp_async_commit();
     }
-    cp_async_commit();
-    for (int i = lane; i < (w1 - w0) * LPS; i += 32) {
-      const int r = w0 + i / LPS, c = i % LPS;
-      cp_async16(smem_u32(vs + r * HD + c * 8), vb + (size_t)(c0 + r) * slot + c * 8, 16);
-    }
-    cp_async_commit();
 
     // (q * scale) rounded to bf16 before the score product (decode.py:287)
     float qr[G][8];
@@ -286,7 +341,8 @@ attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         wl[warp][g] = l;
       }
     }
-    cp_async_wait<0>();
+    if constexpr (Q8) dequant_rows<HD>(vs, vb, veb, w0, w1, c0, slot, Hkv, lane);
+    else cp_async_wait<0>();
     __syncwarp();
 
     float acc[G][8];
@@ -391,7 +447,12 @@ attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int e = 0; e < 8; ++e) acc[e] = 0.f;
     for (int j = lane / LPS + warp * RPW; j < Sk; j += kAtWarps * RPW) {
       float vf[8];
-      unpack8(__ldg(reinterpret_cast<const uint4*>(vb + (size_t)j * slot + dc * 8)), vf);
+      if constexpr (Q8)
+        unpack8(dequant8(__ldg(reinterpret_cast<const uint2*>(vb + (size_t)j * slot + dc * 8)),
+                         pow2_exact(__ldg(veb + (size_t)j * Hkv))),
+                vf);
+      else
+        unpack8(__ldg(reinterpret_cast<const uint4*>(vb + (size_t)j * slot + dc * 8)), vf);
 #pragma unroll
       for (int e = 0; e < 8; ++e) acc[e] += vf[e];
     }
@@ -738,6 +799,45 @@ int gemv_launch_shape(int B, int K, int kt_per, int split, int* xs_stride, int* 
   return 0;
 }
 
+// attn_kernel<G, hd, Q8> for the call's G = Hq/Hkv and hd (the C entry
+// points below say which it takes).
+template <bool Q8>
+int launch_attention(const void* q, const void* k, const void* v, const void* ke,
+                     const void* ve, const void* kvp, int kvp_stride, const void* limit,
+                     int limit_stride, const void* qpos, const void* win_ptr, int win_static,
+                     int causal, float scale, void* ctx, int B, int Sk, int Hq, int Hkv, int hd,
+                     int chunk, int splits, void* ws, void* counters, void* stream) {
+  typedef typename std::conditional<Q8, int8_t, bf16>::type KV;
+  if (B <= 0 || Sk <= 0 || Hkv <= 0 || Hq % Hkv != 0 || chunk <= 0 || chunk % 16 != 0 ||
+      chunk > kAtMaxSlots || chunk * hd * 2 > kAtChunkBytes ||
+      splits != (Sk + chunk - 1) / chunk || ws == nullptr || counters == nullptr)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int G = Hq / Hkv;
+  const dim3 grid(B * Hkv, splits);
+#define REPRO_ATTN(GV, HDV)                                                            \
+  if (G == GV && hd == HDV) {                                                          \
+    static bool configured[kMaxDevices] = {};                                          \
+    const int most = attn_smem_bytes(kAtChunkBytes / (2 * HDV), GV, HDV);              \
+    const cudaError_t err = configure_once(attn_kernel<GV, HDV, Q8>, configured, most); \
+    if (err != cudaSuccess) return (int)err;                                           \
+    attn_kernel<GV, HDV, Q8><<<grid, kAtThreads, attn_smem_bytes(chunk, GV, HDV), s>>>( \
+        (const bf16*)q, (const KV*)k, (const KV*)v, (const int8_t*)ke, (const int8_t*)ve, \
+        (const int*)kvp, kvp_stride, (const int*)limit, limit_stride, (const int*)qpos,  \
+        (const int*)win_ptr, win_static, causal, scale, (bf16*)ctx, Sk, Hkv, chunk,      \
+        (float*)ws, (int*)counters);                                                   \
+    return (int)cudaGetLastError();                                                    \
+  }
+  REPRO_ATTN(1, 32) REPRO_ATTN(1, 64) REPRO_ATTN(1, 128) REPRO_ATTN(1, 256)
+  REPRO_ATTN(2, 32) REPRO_ATTN(2, 64) REPRO_ATTN(2, 128) REPRO_ATTN(2, 256)
+  REPRO_ATTN(4, 32) REPRO_ATTN(4, 64) REPRO_ATTN(4, 128) REPRO_ATTN(4, 256)
+  REPRO_ATTN(8, 32) REPRO_ATTN(8, 64) REPRO_ATTN(8, 128) REPRO_ATTN(8, 256)
+  REPRO_ATTN(6, 32) REPRO_ATTN(6, 64) REPRO_ATTN(6, 128) REPRO_ATTN(6, 256)
+  REPRO_ATTN(12, 32) REPRO_ATTN(12, 64) REPRO_ATTN(12, 128) REPRO_ATTN(12, 256)
+#undef REPRO_ATTN
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
@@ -816,34 +916,23 @@ int repro_decode_attention(const void* q, const void* k, const void* v, const vo
                            int causal, float scale, void* ctx, int B, int Sk, int Hq,
                            int Hkv, int hd, int chunk, int splits, void* ws, void* counters,
                            void* stream) {
-  if (B <= 0 || Sk <= 0 || Hkv <= 0 || Hq % Hkv != 0 || chunk <= 0 || chunk % 16 != 0 ||
-      chunk > kAtMaxSlots || chunk * hd * 2 > kAtChunkBytes ||
-      splits != (Sk + chunk - 1) / chunk || ws == nullptr || counters == nullptr)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int G = Hq / Hkv;
-  const dim3 grid(B * Hkv, splits);
-#define REPRO_ATTN(GV, HDV)                                                            \
-  if (G == GV && hd == HDV) {                                                          \
-    static bool configured[kMaxDevices] = {};                                          \
-    const int most = attn_smem_bytes(kAtChunkBytes / (2 * HDV), GV, HDV);                \
-    const cudaError_t err = configure_once(attn_kernel<GV, HDV>, configured, most);    \
-    if (err != cudaSuccess) return (int)err;                                           \
-    attn_kernel<GV, HDV><<<grid, kAtThreads, attn_smem_bytes(chunk, GV, HDV), s>>>(    \
-        (const bf16*)q, (const bf16*)k, (const bf16*)v, (const int*)kvp, kvp_stride,   \
-        (const int*)limit, limit_stride, (const int*)qpos, (const int*)win_ptr,        \
-        win_static, causal, scale, (bf16*)ctx, Sk, Hkv, chunk, (float*)ws,             \
-        (int*)counters);                                                               \
-    return (int)cudaGetLastError();                                                    \
-  }
-  REPRO_ATTN(1, 32) REPRO_ATTN(1, 64) REPRO_ATTN(1, 128) REPRO_ATTN(1, 256)
-  REPRO_ATTN(2, 32) REPRO_ATTN(2, 64) REPRO_ATTN(2, 128) REPRO_ATTN(2, 256)
-  REPRO_ATTN(4, 32) REPRO_ATTN(4, 64) REPRO_ATTN(4, 128) REPRO_ATTN(4, 256)
-  REPRO_ATTN(8, 32) REPRO_ATTN(8, 64) REPRO_ATTN(8, 128) REPRO_ATTN(8, 256)
-  REPRO_ATTN(6, 32) REPRO_ATTN(6, 64) REPRO_ATTN(6, 128) REPRO_ATTN(6, 256)
-  REPRO_ATTN(12, 32) REPRO_ATTN(12, 64) REPRO_ATTN(12, 128) REPRO_ATTN(12, 256)
-#undef REPRO_ATTN
-  return (int)cudaErrorInvalidValue;
+  return launch_attention<false>(q, k, v, nullptr, nullptr, kvp, kvp_stride, limit,
+                                 limit_stride, qpos, win_ptr, win_static, causal, scale, ctx, B,
+                                 Sk, Hq, Hkv, hd, chunk, splits, ws, counters, stream);
+}
+
+// The same over an int8 cache: k/v (B, Sk, Hkv, hd) int8 payloads and ke/ve
+// (B, Sk, Hkv) int8 exponents, each slot's row worth q * 2^e.
+int repro_decode_attention_q8(const void* q, const void* k, const void* v, const void* ke,
+                              const void* ve, const void* kvp, int kvp_stride,
+                              const void* limit, int limit_stride, const void* qpos,
+                              const void* win_ptr, int win_static, int causal, float scale,
+                              void* ctx, int B, int Sk, int Hq, int Hkv, int hd, int chunk,
+                              int splits, void* ws, void* counters, void* stream) {
+  if (ke == nullptr || ve == nullptr) return (int)cudaErrorInvalidValue;
+  return launch_attention<true>(q, k, v, ke, ve, kvp, kvp_stride, limit, limit_stride, qpos,
+                                win_ptr, win_static, causal, scale, ctx, B, Sk, Hq, Hkv, hd,
+                                chunk, splits, ws, counters, stream);
 }
 
 }  // extern "C"

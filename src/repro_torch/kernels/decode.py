@@ -49,7 +49,8 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
-def _check(name: str, t: torch.Tensor, shape: Sequence[int], device, dtype=torch.bfloat16):
+def _check(name: str, t: torch.Tensor, shape: Sequence[int], device, dtype=torch.bfloat16,
+           align: int = 16):
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != dtype:
@@ -58,8 +59,8 @@ def _check(name: str, t: torch.Tensor, shape: Sequence[int], device, dtype=torch
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
-    if t.data_ptr() % 16:
-        raise ValueError(f"{name} must be 16-byte aligned")
+    if t.data_ptr() % align:
+        raise ValueError(f"{name} must be {align}-byte aligned")
 
 
 def _check_opt(name, t, shape, device, dtype=torch.bfloat16):
@@ -182,8 +183,12 @@ def attn_plan(b: int, hkv: int, sk: int, hd: int, sms: int) -> AttnPlan:
     """Chunks of the cache for ``b * hkv`` (lane, kv-head) pairs on a card
     with ``sms`` SMs: as many as give every SM about
     ``ATTN_BLOCKS_PER_SM`` blocks, each a multiple of ``ATTN_SLOTS``
-    slots whose K rows fit ``ATTN_CHUNK_BYTES``.  Sized from the shape
-    alone: which slots a lane may attend is known only on the device."""
+    slots whose K rows fit ``ATTN_CHUNK_BYTES`` (in bf16, an int8 cache
+    too: its chunk is dequantized into the same shared memory).  Sized
+    from the shape alone: which slots a lane may attend is known only on
+    the device.  A lane's result depends on the chunks alone, so a call
+    over a lane group of a batch, planned with the batch's ``b``
+    (``plan_lanes``), gives each lane the batch's bits."""
     cap = min(ATTN_MAX_SLOTS, ATTN_CHUNK_BYTES // (2 * hd)) // ATTN_SLOTS * ATTN_SLOTS
     want = -(-ATTN_BLOCKS_PER_SM * sms // (b * hkv))
     chunk = min(cap, -(-sk // (want * ATTN_SLOTS)) * ATTN_SLOTS)
@@ -302,14 +307,27 @@ def fused_decode_attention(
     window_arr: Optional[torch.Tensor] = None,     # dynamic () int32 window
     kv_positions: Optional[torch.Tensor] = None,   # (Sk,) or (B, Sk) ring slots
     causal: bool = True,
+    k_exp: Optional[torch.Tensor] = None,          # (B, Sk, Hkv) int8 (an int8 cache)
+    v_exp: Optional[torch.Tensor] = None,
+    plan_lanes: Optional[int] = None,              # lanes the split is sized for (B)
 ) -> torch.Tensor:
     """Single-token GQA attention + output projection -> (B, d).
 
     Mask semantics mirror ``models.attention._decode_attention``:
     ``kv_positions`` (ring caches; negative = never written) else
-    ``arange < kv_valid_len``; causal row/window bounds on top."""
+    ``arange < kv_valid_len``; causal row/window bounds on top.
+
+    ``k``, ``v`` are the bf16 cache, or the int8 cache of ``kv_quant``
+    with its exponents ``k_exp``, ``v_exp``: slot ``s`` of a lane's head
+    is worth ``k[s] * 2**k_exp[s]`` (``ref.kv_dequantize``), and the
+    kernel dequantizes each chunk as it loads it, so its result equals
+    the bf16 kernel's on the dequantized cache bit for bit and no bf16
+    copy of the cache is made.  ``plan_lanes``: the batch a lane group's
+    call belongs to, which sizes the cache's split (:func:`attn_plan`),
+    so that the group's lanes get the batch's bits."""
     kw = dict(q_positions=q_positions, kv_valid_len=kv_valid_len, window=window,
-              window_arr=window_arr, kv_positions=kv_positions, causal=causal)
+              window_arr=window_arr, kv_positions=kv_positions, causal=causal,
+              k_exp=k_exp, v_exp=v_exp)
     if not use_kernel(q):
         return ref.decode_attention_ref(q, k, v, wo, bo, **kw)
     b, hq, hd = q.shape
@@ -319,7 +337,7 @@ def fused_decode_attention(
         raise ValueError(f"model width {d} is not a multiple of 8")
     _check("wo", wo, (hq * hd, d), dev)
     _check_opt("bo", bo, (d,), dev)
-    ctx = _attention_ctx(q, k, v, **kw)
+    ctx = _attention_ctx(q, k, v, plan_lanes=plan_lanes, **kw)
     y = torch.empty((b, d), dtype=q.dtype, device=dev)
     _gemv(ctx, wo, None, bo, y, -1, "fused_decode_attention (output projection)")
     fused_decode_attention.launches += 1
@@ -327,10 +345,12 @@ def fused_decode_attention(
 
 
 def _attention_ctx(q, k, v, *, q_positions, kv_valid_len=None, window=None, window_arr=None,
-                   kv_positions=None, causal=True) -> torch.Tensor:
+                   kv_positions=None, causal=True, k_exp=None, v_exp=None,
+                   plan_lanes=None) -> torch.Tensor:
     """Launch 1 of :func:`fused_decode_attention` on CUDA tensors: the
     attention's context (B, Hq*hd) in ``q.dtype``, the cache split into
-    :func:`attn_plan`'s chunks."""
+    :func:`attn_plan`'s chunks (sized for ``plan_lanes`` lanes, default
+    B), over a bf16 cache or an int8 one with its exponents."""
     b, hq, hd = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     dev = q.device
@@ -338,8 +358,16 @@ def _attention_ctx(q, k, v, *, q_positions, kv_valid_len=None, window=None, wind
     if hkv <= 0 or hq % hkv or hq // hkv not in ATTN_GROUPS or hd not in ATTN_HEAD_DIMS:
         raise ValueError(f"(Hq={hq}, Hkv={hkv}, hd={hd}) is not supported by the kernel")
     _check("q", q, (b, hq, hd), dev)
-    _check("k", k, (b, sk, hkv, hd), dev)
-    _check("v", v, (b, sk, hkv, hd), dev)
+    if (k_exp is None) != (v_exp is None):
+        raise ValueError("k_exp and v_exp come together or not at all")
+    quant = k_exp is not None
+    kv_dtype = torch.int8 if quant else torch.bfloat16
+    _check("k", k, (b, sk, hkv, hd), dev, kv_dtype)
+    _check("v", v, (b, sk, hkv, hd), dev, kv_dtype)
+    if quant:
+        # one exponent a slot and kv-head, read a byte at a time
+        _check("k_exp", k_exp, (b, sk, hkv), dev, torch.int8, align=1)
+        _check("v_exp", v_exp, (b, sk, hkv), dev, torch.int8, align=1)
     _check("q_positions", q_positions, (b,), dev, torch.int32)
     kvp, kvp_stride = None, 0
     if kv_positions is not None:
@@ -360,17 +388,23 @@ def _attention_ctx(q, k, v, *, q_positions, kv_valid_len=None, window=None, wind
     elif window is not None:
         win_static = int(window)
     scale = ref.dtype_scalar(1.0 / (hd ** 0.5), q.dtype)
-    plan = attn_plan(b, hkv, sk, hd, _sm_count(dev))
+    if plan_lanes is None:
+        plan_lanes = b
+    elif plan_lanes < b:
+        raise ValueError(f"plan_lanes {plan_lanes} is fewer than the call's {b} lanes")
+    plan = attn_plan(plan_lanes, hkv, sk, hd, _sm_count(dev))
     stream = _stream()
     ws, cnt = split_k_scratch("attn", dev, stream, plan.ws_floats(b, hkv, hq // hkv, hd),
                               torch.float32, b * hkv)
     ctx = torch.empty((b, hq * hd), dtype=q.dtype, device=dev)
-    err = _lib().repro_decode_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), kvp, kvp_stride,
-        limit, limit_stride, q_positions.data_ptr(), win_ptr, win_static,
-        int(causal), scale, ctx.data_ptr(), b, sk, hq, hkv, hd,
-        plan.chunk, plan.splits, ws.data_ptr(), cnt.data_ptr(), stream,
-    )
+    tail = (kvp, kvp_stride, limit, limit_stride, q_positions.data_ptr(), win_ptr, win_static,
+            int(causal), scale, ctx.data_ptr(), b, sk, hq, hkv, hd,
+            plan.chunk, plan.splits, ws.data_ptr(), cnt.data_ptr(), stream)
+    if quant:
+        err = _lib().repro_decode_attention_q8(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), k_exp.data_ptr(), v_exp.data_ptr(), *tail)
+    else:
+        err = _lib().repro_decode_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(), *tail)
     _raise_on(err, "fused_decode_attention (attention)")
     return ctx
 

@@ -77,8 +77,13 @@ def decode_attention(
     window_arr: Optional[torch.Tensor] = None,
     kv_positions: Optional[torch.Tensor] = None,
     causal: bool = True,
+    k_exp: Optional[torch.Tensor] = None,  # (B, Sk, Hkv) int8: k, v are an int8 cache
+    v_exp: Optional[torch.Tensor] = None,
+    plan_lanes: Optional[int] = None,
 ) -> torch.Tensor:
-    """Fused attention + output projection -> (B, 1, d)."""
+    """Fused attention + output projection -> (B, 1, d), over the bf16
+    cache or the int8 one (``kv_quant``) with its exponents; ``plan_lanes``
+    as in :func:`decode.fused_decode_attention`."""
     b = q.shape[0]
     y = decode.fused_decode_attention(
         q[:, 0],
@@ -90,6 +95,9 @@ def decode_attention(
         window_arr=window_arr,
         kv_positions=kv_positions,
         causal=causal,
+        k_exp=k_exp,
+        v_exp=v_exp,
+        plan_lanes=plan_lanes,
     )
     return y[:, None]
 

@@ -176,6 +176,37 @@ def fused_qkv_ref(
     return q, k, v
 
 
+def pow2_exact(e: torch.Tensor) -> torch.Tensor:
+    """float32 ``2**e`` of integer exponents ``e`` in [-126, 127], built
+    from the bits: exact on every device (XLA's float32 ``exp2`` is not at
+    |e| >= 13)."""
+    return ((e.to(torch.int32) + 127) << 23).view(torch.float32)
+
+
+def kv_quantize(x: torch.Tensor):
+    """(..., hd) float -> (int8 payload, int8 exponent over the last dim):
+    the int8 KV cache's power-of-two quantization
+    (``repro.models.transformer.kv_quantize``), op for op: ``e =
+    ceil(log2(max(amax, 1e-30) / 127))`` clipped to [-126, 126], ``q =
+    clip(round(x / 2**e), -128, 127)`` (half to even, as ``jnp.round``).
+    The contract with the reference: equal bits, except where ``amax /
+    127`` lies within a few float32 ulps of a power of two, where the two
+    ``log2`` may round apart and ``ceil`` then flips the exponent; and
+    where |e| >= 13, where the reference divides by XLA's inexact
+    ``exp2`` and this uses the exact power of two."""
+    xf = x.float()
+    amax = xf.abs().amax(-1)
+    e = torch.ceil(torch.log2(torch.clamp(amax, min=1e-30) / 127.0)).clamp(-126, 126)
+    q = torch.clamp(torch.round(xf / pow2_exact(e)[..., None]), INT8_MIN, INT8_MAX)
+    return q.to(torch.int8), e.to(torch.int8)
+
+
+def kv_dequantize(q: torch.Tensor, e: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    """int8 payload (..., hd) and exponent (...) -> ``q * 2**e`` in ``dt``
+    (exact in bfloat16 and float32: |q| <= 128 takes 8 bits)."""
+    return (q.float() * pow2_exact(e)[..., None]).to(dt)
+
+
 def decode_mask(
     b: int,
     sk: int,
@@ -221,6 +252,8 @@ def decode_attention_ref(
     wo: torch.Tensor,                      # (Hq*hd, d)
     bo: Optional[torch.Tensor] = None,
     *,
+    k_exp: Optional[torch.Tensor] = None,  # (B, Sk, Hkv) int8: k, v are an int8 cache
+    v_exp: Optional[torch.Tensor] = None,
     q_positions: torch.Tensor,
     kv_valid_len=None,
     window: Optional[int] = None,
@@ -228,7 +261,13 @@ def decode_attention_ref(
     kv_positions: Optional[torch.Tensor] = None,
     causal: bool = True,
 ) -> torch.Tensor:
-    """Oracle for :func:`decode.fused_decode_attention` (attention + wo)."""
+    """Oracle for :func:`decode.fused_decode_attention` (attention + wo).
+    An int8 cache is first dequantized (:func:`kv_dequantize`) to
+    ``q.dtype``, as the reference's decode does before its attention."""
+    if (k_exp is None) != (v_exp is None):
+        raise ValueError("k_exp and v_exp come together or not at all")
+    if k_exp is not None:
+        k, v = kv_dequantize(k, k_exp, q.dtype), kv_dequantize(v, v_exp, q.dtype)
     b, hq, hd = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     g = hq // hkv

@@ -16,6 +16,16 @@ rule): decode writes position ``p`` to slot ``p % slots`` and attends the
 slots through their absolute positions (:func:`ring_positions`); prefill
 lays its last ``window`` positions out the same way.
 
+With ``kv_quant`` the cache is int8 with power-of-two exponents, four
+leaves ``(k, v, k_exp, v_exp)``: payloads ``(L, B, S, KV, hd)`` and one
+exponent per (slot, kv head), ``(L, B, S, KV)``, starting at -126
+(:func:`kv_quantize`, :func:`kv_dequantize`, the reference's arithmetic).
+Decode quantizes each new k, v and writes payload and exponent; the
+composed path dequantizes the cache as the reference does, the kernel
+path hands the int8 cache and its exponents to the attention kernel,
+which dequantizes as it loads.  Prefill attends the unquantized k, v and
+returns the quantized cache.
+
 Unlike the reference, the decode path updates the KV cache *in place*:
 the cache tensors given to :func:`decode_step` / :func:`decode_stage` are
 written and returned, so the serving engine's preallocated buffers are
@@ -33,7 +43,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import dispatch as kdispatch
 from repro_torch.kernels.common import resolve_device
-from repro_torch.kernels.ref import BIG_WINDOW
+from repro_torch.kernels.ref import BIG_WINDOW, kv_dequantize, kv_quantize
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models.common import apply_norm, apply_rope, mlp_is_gated
@@ -43,7 +53,6 @@ _LATER = (
     (lambda c: c.family in ("ssm", "hybrid", "encdec"), "the {family} family", 12),
     (lambda c: c.family == "vlm", "vlm patch embeddings", 9),
     (lambda c: c.is_moe, "mixture-of-experts MLPs", 12),
-    (lambda c: c.kv_quant, "kv_quant", 9),
     (lambda c: c.pos_embed != "rope", "{pos_embed} positions", 9),
 )
 
@@ -185,6 +194,19 @@ def ring_positions(pos: torch.Tensor, slots: int) -> torch.Tensor:
     return pos - (pos - s) % slots
 
 
+def _norm(cfg, x: torch.Tensor, p, plan_lanes: Optional[int]) -> torch.Tensor:
+    """``apply_norm`` over a lane group's rows padded with zero rows to
+    ``plan_lanes``: torch's CUDA reductions pick their split of a row from
+    the row count, so a group's norm reduced at its own count could round
+    other than the whole batch's, while at the batch's count each row
+    reduces as it does there."""
+    b = x.shape[0]
+    if plan_lanes is None or plan_lanes == b:
+        return apply_norm(cfg, x, p)
+    pad = x.new_zeros((plan_lanes - b,) + tuple(x.shape[1:]))
+    return apply_norm(cfg, torch.cat([x, pad]), p)[:b]
+
+
 def _layer_slice(tree, i):
     """Layer ``i`` of a stacked params/cache tree (views, no copies)."""
     if isinstance(tree, dict):
@@ -201,17 +223,18 @@ def _layer_fn(
     lp: dict,
     window: torch.Tensor,            # () int32
     positions: torch.Tensor,         # (B, S)
-    cache_kv: Optional[Tuple[torch.Tensor, torch.Tensor]],  # (B, Smax, KV, hd) x2
+    cache_kv: Optional[tuple],       # (B, Smax, KV, hd) x2 (+ (B, Smax, KV) x2 exponents)
     decode_pos: Optional[torch.Tensor],                     # () or (B,) int32
     return_kv: bool,
     write_pos: Optional[torch.Tensor] = None,     # a ring's slot of decode_pos
     kv_positions: Optional[torch.Tensor] = None,  # a ring's (Smax,) or (B, Smax) positions
+    plan_lanes: Optional[int] = None,             # the batch a lane group belongs to
 ):
     dt = x.dtype
     # the decode kernels take the single-token hot path when
     # cfg.decode_kernels is set; the cache write stays plain torch
     use_kernels = kdispatch.attention_active(cfg, x) and cache_kv is not None
-    h = apply_norm(cfg, x, lp.get("attn_norm"))
+    h = _norm(cfg, x, lp.get("attn_norm"), plan_lanes)
     if use_kernels:
         q, k, v = kdispatch.decode_qkv(cfg, lp["attn"], h, positions, rope=True)
     else:
@@ -220,33 +243,47 @@ def _layer_fn(
         k = apply_rope(k, positions, cfg.rope_theta)
 
     new_cache = None
+    exps = {}
     if cache_kv is not None:
-        ck, cv = cache_kv
         if write_pos is None:
             write_pos = decode_pos
+        new = (k, v)
+        if cfg.kv_quant:
+            # the int8 cache takes each row's payload and exponent, k and v
+            # quantized in one pass (half the launches of two)
+            q8, e8 = kv_quantize(torch.stack((k, v)))
+            new = (q8[0], q8[1], e8[0], e8[1])
         if decode_pos.dim() > 0:
             # one-token decode: each lane writes its row at its own position
-            lanes = torch.arange(ck.shape[0], device=ck.device)
-            ck[lanes, write_pos] = k[:, 0].to(ck.dtype)
-            cv[lanes, write_pos] = v[:, 0].to(cv.dtype)
+            lanes = torch.arange(x.shape[0], device=x.device)
+            for buf, val in zip(cache_kv, new):
+                buf[lanes, write_pos] = val[:, 0].to(buf.dtype)
         else:
-            idx = write_pos + torch.arange(x.shape[1], device=ck.device)
-            ck.index_copy_(1, idx, k.to(ck.dtype))
-            cv.index_copy_(1, idx, v.to(cv.dtype))
-        new_cache = (ck, cv)
-        k_att, v_att = ck, cv
+            idx = write_pos + torch.arange(x.shape[1], device=x.device)
+            for buf, val in zip(cache_kv, new):
+                buf.index_copy_(1, idx, val.to(buf.dtype))
+        new_cache = cache_kv
+        k_att, v_att = cache_kv[:2]
+        if cfg.kv_quant and use_kernels:
+            exps = dict(k_exp=cache_kv[2], v_exp=cache_kv[3])
+        elif cfg.kv_quant:
+            k_att, v_att = (kv_dequantize(c, e, dt) for c, e in zip(cache_kv[:2], cache_kv[2:]))
         valid = decode_pos + x.shape[1]
     else:
         k_att, v_att = k, v
         valid = None
 
     if use_kernels:
+        if not exps:
+            k_att, v_att = k_att.to(dt), v_att.to(dt)
         x = x + kdispatch.decode_attention(
-            cfg, lp["attn"], q, k_att.to(dt), v_att.to(dt),
+            cfg, lp["attn"], q, k_att, v_att,
             q_positions=positions,
             kv_valid_len=valid,
             window_arr=window,
             kv_positions=kv_positions,
+            plan_lanes=plan_lanes,
+            **exps,
         )
     else:
         ctx = attn.gqa_attention(
@@ -260,7 +297,7 @@ def _layer_fn(
         )
         x = x + attn.project_out(cfg, lp["attn"], ctx)
 
-    h2 = apply_norm(cfg, x, lp.get("mlp_norm"))
+    h2 = _norm(cfg, x, lp.get("mlp_norm"), plan_lanes)
     if kdispatch.mlp_active(cfg, h2):
         y = kdispatch.decode_mlp(cfg, lp["mlp"], h2)
     else:
@@ -279,7 +316,8 @@ def forward_hidden(
     tokens: torch.Tensor,            # (B, S)
     return_cache: bool = False,
 ):
-    """Full-sequence pass -> (hidden (B,S,D), optional kv cache (L,B,S,KV,hd) x2)."""
+    """Full-sequence pass -> (hidden (B,S,D), optional kv cache (L,B,S,KV,hd) x2;
+    with ``kv_quant`` the int8 payloads and their (L,B,S,KV) exponents)."""
     check_supported(cfg)
     b, s = tokens.shape
     dev = tokens.device
@@ -296,7 +334,12 @@ def forward_hidden(
             ks.append(kv[0])
             vs.append(kv[1])
     x = apply_norm(cfg, x, params.get("final_norm"))
-    cache = (torch.stack(ks), torch.stack(vs)) if return_cache else None
+    cache = None
+    if return_cache:
+        cache = (torch.stack(ks), torch.stack(vs))
+        if cfg.kv_quant:
+            (kq, ke), (vq, ve) = kv_quantize(cache[0]), kv_quantize(cache[1])
+            cache = (kq, vq, ke, ve)
     return x, cache
 
 
@@ -318,7 +361,9 @@ def prefill(
     tokens: torch.Tensor,
     lengths: Optional[torch.Tensor] = None,
 ):
-    """Full-context pass -> (last-token logits (B,V), kv cache (L,B,S,KV,hd) x2).
+    """Full-context pass -> (last-token logits (B,V), kv cache (L,B,S,KV,hd) x2,
+    or with ``kv_quant`` the four leaves of the int8 cache; the attention
+    inside runs on the unquantized k, v, as the reference's does).
 
     ``lengths`` (B,) enables bucketed batched prefill: rows are prompts
     right-padded to a shared bucket length, and logits are gathered at
@@ -356,11 +401,19 @@ def prefill(
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
     """A zero KV cache of ``max_len`` slots a lane; a ring's holds
-    ``min(max_len, window)``."""
+    ``min(max_len, window)``.  ``kv_quant``: int8 payloads and (L, B, S,
+    KV) int8 exponents filled with -126, ``(k, v, k_exp, v_exp)``."""
     check_supported(cfg)
     device = resolve_device(device)
     slots = min(max_len, cfg.window) if ring_applies(cfg) else max_len
     shape = (cfg.n_layers, batch, slots, cfg.n_kv_heads, cfg.head_dim)
+    if cfg.kv_quant:
+        return (
+            torch.zeros(shape, dtype=torch.int8, device=device),
+            torch.zeros(shape, dtype=torch.int8, device=device),
+            torch.full(shape[:-1], -126, dtype=torch.int8, device=device),
+            torch.full(shape[:-1], -126, dtype=torch.int8, device=device),
+        )
     return (
         torch.zeros(shape, dtype=_dtype(cfg), device=device),
         torch.zeros(shape, dtype=_dtype(cfg), device=device),
@@ -414,10 +467,15 @@ def decode_stage(
     hidden: torch.Tensor,            # (B, 1, D)
     stage_cache,
     pos: torch.Tensor,               # () or (B,) int32 -- write position
+    plan_lanes: Optional[int] = None,
 ):
     """One token step through a contiguous layer slice -> (hidden, cache).
     The cache is updated in place and returned.  A ring's write slot and
-    slot positions are computed once for the slice."""
+    slot positions are computed once for the slice.  ``plan_lanes``: when
+    ``hidden`` is a lane group of a larger batch, that batch's size: the
+    attention kernel splits the cache as for the whole batch, and the
+    norms reduce at the batch's row count (:func:`_norm`), so the group's
+    lanes get the whole batch's bits (default: B)."""
     n = stage_params["windows"].shape[0]
     pos, positions = _decode_positions(pos, hidden.shape[0])
     write_pos = kv_positions = None
@@ -430,14 +488,16 @@ def decode_stage(
             cfg, x, _layer_slice(stage_params["layers"], i),
             stage_params["windows"][i], positions,
             tuple(c[i] for c in stage_cache), pos, return_kv=False,
-            write_pos=write_pos, kv_positions=kv_positions,
+            write_pos=write_pos, kv_positions=kv_positions, plan_lanes=plan_lanes,
         )
     return x, stage_cache
 
 
-def decode_unembed(cfg: ModelConfig, params: dict, hidden: torch.Tensor) -> torch.Tensor:
-    """hidden (B, 1, D) -> logits (B, V)."""
-    x = apply_norm(cfg, hidden, params.get("final_norm"))
+def decode_unembed(cfg: ModelConfig, params: dict, hidden: torch.Tensor,
+                   plan_lanes: Optional[int] = None) -> torch.Tensor:
+    """hidden (B, 1, D) -> logits (B, V); ``plan_lanes`` as in
+    :func:`decode_stage`."""
+    x = _norm(cfg, hidden, params.get("final_norm"), plan_lanes)
     return logits_last(cfg, params, x)
 
 

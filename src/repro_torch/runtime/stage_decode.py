@@ -22,7 +22,11 @@ Entry points:
   views of the master cache and :meth:`export_cache` writes nothing back;
   a stage on a device of its own holds a copy, written back at export.
   ``decode_stage`` hands the attention one layer at a time, and a layer's
-  lanes ``c[i][g0:g1]`` are contiguous, as the attention kernel needs;
+  lanes ``c[i][g0:g1]`` are contiguous, as the attention kernel needs.
+  Every lane group's call passes the whole batch as ``plan_lanes``, so the
+  attention kernel splits the cache as the single-PU call does and the
+  norms reduce at the single-PU row count: each lane's sums run in the
+  single-PU order;
 - decode rounds push live hidden states through
   :class:`runtime.pipeline_exec.StagePipelineExecutor`: the first stage
   embeds the token batch, every stage folds its layer slice (updating its
@@ -163,6 +167,7 @@ class StagedDecodeRunner:
         # (n_groups == 1 keeps the whole stage slice in group 0)
         self.stage_caches: Optional[List[List[Any]]] = None
         self._master = None
+        self._lanes: Optional[int] = None    # the master cache's lanes (the batch)
         self._stage_full: List[Any] = []
         self.n_groups = int(n_groups)
         self.queue_depth = int(queue_depth)
@@ -261,6 +266,7 @@ class StagedDecodeRunner:
                 f"n_groups={M} does not divide the {B}-lane slot batch"
             )
         g = B // M
+        self._lanes = B
         self._master = cache
         self._stage_full = []
         self.stage_caches = []
@@ -298,7 +304,8 @@ class StagedDecodeRunner:
         """Stage ``k``'s layer slice over ``x`` against lane group ``g``'s
         cache slice (updated in place)."""
         x, _ = self.api.decode_stage(
-            self.cfg, self.stage_params[k], x, self.stage_caches[k][g], pos
+            self.cfg, self.stage_params[k], x, self.stage_caches[k][g], pos,
+            plan_lanes=self._lanes,
         )
         return x
 
@@ -315,7 +322,8 @@ class StagedDecodeRunner:
                 x = self.api.decode_embed(self.cfg, self._heads[0], x, pos)
             x = self._stage(k, x, g, pos)
             if k == K - 1:
-                x = self.api.decode_unembed(self.cfg, self._heads[k], x)
+                x = self.api.decode_unembed(self.cfg, self._heads[k], x,
+                                            plan_lanes=self._lanes)
             return (x, pos, g)
 
         # overlapped block mode: stage 0 frames carry only the group
@@ -351,7 +359,8 @@ class StagedDecodeRunner:
         stream then waits on, so the frame's drain event covers the
         transition."""
         k = len(self.ranges) - 1
-        logits = self.api.decode_unembed(self.cfg, self._heads[k], hidden)
+        logits = self.api.decode_unembed(self.cfg, self._heads[k], hidden,
+                                         plan_lanes=self._lanes)
         st = self._block_groups[g]
         stream = self._executor.streams[k]
         if not self._copies[k] or stream is None:
@@ -506,7 +515,8 @@ class StagedDecodeRunner:
                 x = self.api.decode_embed(self.cfg, self._heads[0], st["tokens"], st["pos"])
                 for k in range(K):
                     x = self._stage(k, x, g, st["pos"])
-                logits = self.api.decode_unembed(self.cfg, self._heads[K - 1], x)
+                logits = self.api.decode_unembed(self.cfg, self._heads[K - 1], x,
+                                                 plan_lanes=self._lanes)
                 self._postdecode(st, logits)
 
     def _decode_block_coalesced(

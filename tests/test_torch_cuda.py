@@ -19,7 +19,9 @@ calls giving equal bits); ``niu_refresh`` at odd shapes, within the gate of
 split attention at Sk = 1, 77 and 4096 (windows that mask whole chunks,
 ring caches, a lane with no slot to attend) and QKV on the split-K GEMV
 (head widths 16 to 256, with and without RoPE), each called twice for
-equal bits.  The GEMM's conv mode against ``im2col`` + ``int8_gemm_pn``
+equal bits; the int8-K/V attention (``kv_quant``) equal bit for bit to the
+bf16 kernel on the dequantized cache at every (G, hd), and a lane group
+planned as its batch (``plan_lanes``) given the batch's bits.  The GEMM's conv mode against ``im2col`` + ``int8_gemm_pn``
 at every ResNet-18/50 conv geometry it takes and odd ones, and the NIU
 plan against ``niu_refresh_ref`` over ResNet-50's 54 weight matrices and
 odd ones (a misaligned view, one element), seed per matrix, bit for bit.
@@ -268,6 +270,92 @@ def test_attention_lane_with_no_slot_gets_the_mean_of_v(gen):
     torch.testing.assert_close(ctx[0], mean, **TOL)
     eye = torch.eye(hq * hd, dtype=torch.bfloat16, device="cuda")
     torch.testing.assert_close(ctx, ref.decode_attention_ref(q, k, v, eye, **kw), **TOL)
+
+
+def _int8_cache(gen, b, sk, hkv, hd, written):
+    """An int8 cache (payloads, exponents) of ``written`` slots a lane, the
+    rest as ``init_cache`` leaves them (payload 0, exponent -126)."""
+    x = torch.randn(b, sk, hkv, hd, generator=gen, device="cuda")
+    x = x * torch.exp2(torch.randint(-4, 1, (b, sk, hkv, 1), generator=gen, device="cuda").float())
+    q, e = ref.kv_quantize(x)
+    q[:, written:], e[:, written:] = 0, -126
+    return q, e
+
+
+@pytest.mark.parametrize("sk", [77, 1040])
+@pytest.mark.parametrize("groups", decode.ATTN_GROUPS)
+@pytest.mark.parametrize("hd", decode.ATTN_HEAD_DIMS)
+@pytest.mark.parametrize("case", ["valid_len", "ring", "no_valid_slot"])
+def test_int8_attention_equals_bf16_kernel_on_the_dequantized_cache(gen, sk, groups, hd, case):
+    """The int8-K/V variant (kv_quant) against the bf16 kernel on
+    ``kv_dequantize`` of the same cache: equal bits (the chunks are the
+    same and q * 2^e is exact in bf16); within the tolerance of the plain
+    version; equal bits on a second call."""
+    b, hkv, d = 8, 2, 256
+    hq = groups * hkv
+    q = _rnd(gen, b, hq, hd)
+    kq, ke = _int8_cache(gen, b, sk, hkv, hd, 2 * sk // 3)
+    vq, ve = _int8_cache(gen, b, sk, hkv, hd, 2 * sk // 3)
+    wo, bo = _rnd(gen, hq * hd, d, scale=0.05), _rnd(gen, d, scale=0.05)
+    vlen = torch.randint(1, 2 * sk // 3 + 1, (b,), generator=gen, device="cuda", dtype=torch.int32)
+    kw = dict(q_positions=vlen - 1, kv_valid_len=vlen)
+    if case == "ring":
+        pos = vlen + sk
+        kw = dict(q_positions=pos, kv_positions=pos[:, None] - (pos[:, None] - torch.arange(
+            sk, device="cuda", dtype=torch.int32)) % sk)
+    elif case == "no_valid_slot":
+        kw["kv_valid_len"] = torch.cat([vlen[:1] * 0, vlen[1:]])
+    k, v = (ref.kv_dequantize(p, e, torch.bfloat16) for p, e in ((kq, ke), (vq, ve)))
+    decode.reset_launches()
+    got = decode.fused_decode_attention(q, kq, vq, wo, bo, k_exp=ke, v_exp=ve, **kw)
+    again = decode.fused_decode_attention(q, kq, vq, wo, bo, k_exp=ke, v_exp=ve, **kw)
+    want = decode.fused_decode_attention(q, k, v, wo, bo, **kw)
+    plain = ref.decode_attention_ref(q, kq, vq, wo, bo, k_exp=ke, v_exp=ve, **kw)
+    torch.cuda.synchronize()
+    assert decode.fused_decode_attention.launches == 3
+    assert torch.equal(got, want) and torch.equal(got, again)
+    torch.testing.assert_close(got, plain, **TOL)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_lane_group_planned_as_its_batch_gets_the_batch_bits(gen, quant):
+    """olmo-1b's attention over the serve phase's 584 slots: the lanes
+    4..7 of an 8-lane batch, called alone with ``plan_lanes=8`` (as staged
+    decode's lane groups are), give the batch call's bits; planned from
+    their own 4 lanes the cache splits otherwise."""
+    b, hq, hd, sk, d = 8, 16, 128, 584, 2048
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert decode.attn_plan(4, hq, sk, hd, sms) != decode.attn_plan(8, hq, sk, hd, sms)
+    q = _rnd(gen, b, hq, hd)
+    if quant:
+        (k, ke), (v, ve) = (_int8_cache(gen, b, sk, hq, hd, sk) for _ in range(2))
+        ex = dict(k_exp=ke, v_exp=ve)
+    else:
+        k, v, ex = _rnd(gen, b, sk, hq, hd), _rnd(gen, b, sk, hq, hd), {}
+    wo = _rnd(gen, hq * hd, d, scale=0.02)
+    vlen = torch.tensor([520 + 8 * i for i in range(b)], dtype=torch.int32, device="cuda")
+    full = decode.fused_decode_attention(q, k, v, wo, q_positions=vlen - 1, kv_valid_len=vlen,
+                                         **ex)
+    group = decode.fused_decode_attention(
+        q[4:], k[4:], v[4:], wo, q_positions=vlen[4:] - 1, kv_valid_len=vlen[4:], plan_lanes=b,
+        **{n: t[4:] for n, t in ex.items()})
+    assert torch.equal(group, full[4:])
+    with pytest.raises(ValueError, match="plan_lanes"):
+        decode.fused_decode_attention(q, k, v, wo, q_positions=vlen - 1, plan_lanes=4, **ex)
+
+
+def test_int8_attention_rejects_what_it_cannot_take(gen):
+    q = _rnd(gen, 2, 4, 64)
+    kq, ke = _int8_cache(gen, 2, 32, 2, 64, 32)
+    wo = _rnd(gen, 256, 128)
+    pos = torch.zeros(2, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="together"):
+        decode.fused_decode_attention(q, kq, kq, wo, k_exp=ke, q_positions=pos)
+    with pytest.raises(TypeError):      # int8 payloads without exponents
+        decode.fused_decode_attention(q, kq, kq, wo, q_positions=pos)
+    with pytest.raises(TypeError):      # exponents that are not int8
+        decode.fused_decode_attention(q, kq, kq, wo, k_exp=ke.int(), v_exp=ke.int(),
+                                      q_positions=pos)
 
 
 # ------------------------------------------------------------- PU kernels --

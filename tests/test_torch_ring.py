@@ -23,7 +23,8 @@ otherwise, the reference's parameters converted through ``interop``:
   prompts and decodes that cross the window; staged decode at M = 1 and
   2 against them;
 - gemma3 with ``kv_ring`` keeps its full cache and serves as without it;
-  ``kv_ring`` + ``kv_quant`` still raises naming step 9.
+  ``kv_ring`` + ``kv_quant`` with learned positions still raises naming
+  step 9.
 """
 import dataclasses
 
@@ -409,6 +410,6 @@ def test_gemma3_with_kv_ring_keeps_its_full_cache():
 
 
 def test_kv_ring_with_kv_quant_still_raises():
-    _, tcfg = _cfgs(kv_quant=True)
+    _, tcfg = _cfgs(kv_quant=True, pos_embed="learned")
     with pytest.raises(NotImplementedError, match="step 9"):
         model_api.get_api(tcfg)
