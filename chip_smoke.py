@@ -204,7 +204,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    of 5 and the fault probes of 6 at the model's bar
    (``FAMILY_LOGIT_ATOL``), for gemma3 a third probe that drops every
    layer's window; the phase's wall time; each model freed before the
-   next is made.
+   next is made.  Then ``[serve] internvl2-26b`` (the vlm family) at its
+   published widths and all 48 layers (d_model 6144, 48 query heads over
+   8, d_ff 16384 SwiGLU, RMSNorm, RoPE theta 1e6, vocab 92553 untied,
+   256 vision patches), served with ``SERVE_ARGV``'s 512-token prompts,
+   whose first 256 slots take the (zero) patch embeddings as the
+   reference's engine feeds them: the same checks at its bar, each
+   path's distance to float32 at 16 of its layers (``VLM_F32``; 48
+   layers' float32 weights do not fit), a fourth fault probe that drops
+   the patches (the first 256 slots keep their token embeddings), and
+   beside the round, tokens/s and TTFT the
+   attention's and the unembedding's in-situ times, peak memory and the
+   card's name and power limit.
 8a. ``[serve] mixtral-8x7b-ring``: the reference's ring construction
    (``dataclasses.replace(mixtral-8x7b, n_experts=0, top_k=0,
    kv_ring=True)``) at its published widths (d_model 4096, 32 heads over
@@ -296,8 +307,22 @@ PROBE_STEPS = 1             # engine steps a fault probe serves: a prefill and a
 # nemotron takes 0.35.  gemma3-12b (48 layers, 262144 logits a step)
 # differed by at most 0.4844 (median 0.367; over the first block the
 # probes moved it by 8.56 and 5.53, and a third, every window dropped,
-# by 10.02): it takes 0.6.
-FAMILY_LOGIT_ATOL = {"starcoder2-15b": LOGIT_ATOL, "nemotron-4-15b": 0.35, "gemma3-12b": 0.6}
+# by 10.02): it takes 0.6.  internvl2-26b (48 layers, 92553 logits a
+# step; nemotron-4-15b's query groups and head_dim) was given nemotron's
+# 0.35 before its first card run, and differed by 0.75 (median 0.52; the
+# probes 10.91, 8.94 and, the patches dropped, 11.66).  At 16 of its
+# layers (VLM_F32) the kernel path sat 0.5479 from the same weights
+# served in float32, the composed path 0.5592, and the two 0.3359 apart:
+# the kernel path is the nearer, so the gap is rounding, compounded over
+# depth.  It takes 1.0; the phase reads the float32 distances every run.
+FAMILY_LOGIT_ATOL = {"starcoder2-15b": LOGIT_ATOL, "nemotron-4-15b": 0.35, "gemma3-12b": 0.6,
+                     "internvl2-26b": 1.0}
+# internvl2-26b's kernel rows: the QKV GEMV and the SwiGLU MLP at its
+# widths, at the lanes' positions at round VLM_ROUND of a wave of its
+# 512-token prompts (its attention is row 2a's shape, G = 6, hd 128, d
+# 6144); the unembedding (6144 x 92553, a plain product) timed beside them
+VLM, VLM_ROUND = "internvl2-26b", 40
+
 # gemma3-12b's prompts: its local layers attend the last 1024 positions,
 # so only a context longer than that reaches their window
 FAMILY_PROMPT_LEN = {"gemma3-12b": 1536}
@@ -318,6 +343,12 @@ VARIANTS = {
     RING_FULL: ("mixtral-8x7b", dict(n_experts=0, top_k=0, n_layers=RING_LAYERS)),
     "gemma3-12b": ("gemma3-12b", dict(n_layers=GEMMA_LAYERS)),
 }
+# internvl2-26b's float32 reference: 48 layers' float32 weights (79.4 GB)
+# do not fit the card beside the bf16 ones, so each bf16 path's distance
+# to float32 is read at 16 of its 48 layers, all widths kept (VLM_F32)
+VLM_F32 = f"{VLM}-16"
+VARIANTS[VLM_F32] = (VLM, dict(n_layers=16))
+FAMILY_F32_DEPTH = {VLM: VLM_F32}
 # its prompts alternate below and past the window: a 4064-token prompt
 # prefills under it and its decode wraps the ring at round 33; a 4160-token
 # one goes through the prefill's re-layout, which drops 64 positions
@@ -742,7 +773,11 @@ def kernel_phase(torch, timer, rates):
         library_ms=timer(lambda: (F.silu(x @ wg) * (x @ wu)) @ wd),
         bound_ms=t_bound, bound_by=by,
     )
-    rows["fused_qkv"]["ring"], rows["fused_mlp"]["ring"] = ring_projections(
+    # mixtral-8x7b-ring's QKV GEMV (32 heads over 8, hd 128, RoPE theta 1e6)
+    # and SwiGLU MLP (4096 x 14336 and back) at its widths
+    rows["fused_qkv"]["ring"], rows["fused_mlp"]["ring"] = model_projections(
+        torch, timer, rates, rnd, close, RING, RING_PROMPTS, RING_ROUND)
+    rows["fused_qkv"]["vlm"], rows["fused_mlp"]["vlm"] = vlm_projections(
         torch, timer, rates, rnd, close)
     for name, r in rows.items():
         print(f"[kernel] {name}: max_abs_err={r['max_abs_err']} kernel_ms={r['ms']} "
@@ -1067,43 +1102,63 @@ def int8_attention(torch, timer, rates, rnd, close):
     return rows
 
 
-def ring_projections(torch, timer, rates, rnd, close):
-    """mixtral-8x7b-ring's other two decode kernels at its widths (B = 8,
-    d 4096): the QKV GEMV (32 heads over 8, hd 128, RoPE theta 1e6 at the
-    lanes' decode positions at round ``RING_ROUND`` of a wave and at its
-    first round) and the SwiGLU MLP (4096 x 14336 and back), each with and
-    without bias (the path's has none) against its plain version, equal
-    bits on a second call; times of the path's call.  Returns the two
-    rows."""
+def vlm_projections(torch, timer, rates, rnd, close):
+    """internvl2-26b's QKV GEMV (48 heads over 8, hd 128, RoPE theta 1e6)
+    and SwiGLU MLP (6144 x 16384 and back) at its widths, at the lanes'
+    positions in a wave of 512-token prompts (``model_projections``), and
+    the unembedding of a decode round, ``h (8, 6144) @ unembed (6144,
+    92553)``, a plain product (the JAX package's is no Pallas kernel)
+    timed against its bound.  Returns the two rows."""
+    cfg = model_cfg(VLM)
+    prompt = int(SERVE_ARGV[SERVE_ARGV.index("--prompt-len") + 1])
+    qkv, mlp = model_projections(torch, timer, rates, rnd, close, VLM, (prompt,), VLM_ROUND)
+    h, w = rnd(B, cfg.d_model), rnd(cfg.d_model, cfg.vocab, scale=0.02)
+    t_bound, by = bound(rates, nbytes(h, w) + 4 * B * cfg.vocab, 2 * B * cfg.d_model * cfg.vocab)
+    ms = timer(lambda: (h @ w).float())
+    print(f"[kernel] unembedding at {VLM}'s widths (h ({B}, {cfg.d_model}) @ unembed "
+          f"({cfg.d_model}, {cfg.vocab}), bf16, float32 logits; torch.matmul, rows of "
+          f"{w.stride(0) * w.element_size()} B): ms={ms} bound_ms={t_bound} ({by})", flush=True)
+    del h, w
+    return qkv, mlp
+
+
+def model_projections(torch, timer, rates, rnd, close, arch, prompts, round_):
+    """``arch``'s QKV GEMV and SwiGLU MLP at its widths (B = 8): the QKV at
+    the lanes' decode positions at round ``round_`` of a wave and at its
+    first round (lane i's prompt ``prompts[i % len(prompts)]`` tokens
+    long), each kernel with and without bias (the path's has none) against
+    its plain version, equal bits on a second call; times of the path's
+    call.  Returns the two rows."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import decode, ref
 
-    cfg = model_cfg(RING)
+    cfg = model_cfg(arch)
     hq, hkv, hd, d, ff = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_model, cfg.d_ff
     dev = torch.device("cuda", 0)
     x = rnd(B, d)
 
     def at(r):
-        return torch.tensor([RING_PROMPTS[i % 2] + r - 1 for i in range(B)], dtype=torch.int32,
-                            device=dev)
+        return torch.tensor([prompts[i % len(prompts)] + r - 1 for i in range(B)],
+                            dtype=torch.int32, device=dev)
 
     # --- fused_qkv
     wq, wk, wv = rnd(d, hq * hd, scale=0.02), rnd(d, hkv * hd, scale=0.02), rnd(d, hkv * hd, scale=0.02)
     biases = (rnd(hq * hd, scale=0.02), rnd(hkv * hd, scale=0.02), rnd(hkv * hd, scale=0.02))
     kw = dict(n_heads=hq, n_kv_heads=hkv, head_dim=hd, theta=cfg.rope_theta)
     err = 0.0
-    for r in (RING_ROUND, 1):
+    for r in (round_, 1):
         pos = at(r)
         for bs in (biases, (None, None, None)):
             got = decode.fused_qkv(x, wq, wk, wv, *bs, pos, **kw)
             want = ref.fused_qkv_ref(x, wq, wk, wv, *bs, pos, **kw)
             for a, b_, n in zip(got, want, "qkv"):
-                err = max(err, close(a, b_, f"fused_qkv ring {n} round {r} bias={bs[0] is not None}"))
+                err = max(err, close(a, b_, f"fused_qkv {arch} {n} round {r} "
+                                            f"bias={bs[0] is not None}"))
             again = decode.fused_qkv(x, wq, wk, wv, *bs, pos, **kw)
             assert all(torch.equal(a, b_) for a, b_ in zip(got, again)), \
-                f"fused_qkv ring round {r}: two calls differ"
-    pos = at(RING_ROUND)
+                f"fused_qkv {arch} round {r}: two calls differ"
+    pos = at(round_)
     wqkv = torch.cat([wq, wk, wv], dim=1)
 
     def qkv_library():
@@ -1131,9 +1186,9 @@ def ring_projections(torch, timer, rates, rnd, close):
     for bs in ((bu, bd), (None, None)):
         got = decode.fused_mlp(x, wu, wg, bs[0], wd, bs[1], act="swiglu")
         want = ref.fused_mlp_ref(x, wu, wg, bs[0], wd, bs[1], act="swiglu")
-        merr = max(merr, close(got, want, f"fused_mlp ring swiglu bias={bs[0] is not None}"))
+        merr = max(merr, close(got, want, f"fused_mlp {arch} swiglu bias={bs[0] is not None}"))
         again = decode.fused_mlp(x, wu, wg, bs[0], wd, bs[1], act="swiglu")
-        assert torch.equal(got, again), "fused_mlp ring: two calls differ"
+        assert torch.equal(got, again), f"fused_mlp {arch}: two calls differ"
     t_bound, by = bound(rates, nbytes(x, wu, wg, wd) + 2 * B * d, 2 * B * d * ff * 3)
     copies = [(wu, wg, wd)] + [tuple(w.clone() for w in (wu, wg, wd)) for _ in range(GRAPH_COPIES - 1)]
     mlp = dict(
@@ -1151,7 +1206,8 @@ def ring_projections(torch, timer, rates, rnd, close):
             ("fused_qkv", f"{hq} heads over {hkv}, hd {hd}, RoPE theta {cfg.rope_theta} at the "
                           f"lanes' decode positions", qkv),
             ("fused_mlp", f"SwiGLU {d} x {ff} and back", mlp)):
-        print(f"[kernel] {name} ring (mixtral-8x7b-ring's widths: B {B}, d {d}, {what}): two "
+        tag = "ring" if arch == RING else arch
+        print(f"[kernel] {name} {tag} ({arch}'s widths: B {B}, d {d}, {what}): two "
               f"calls give equal bits in every case; max_abs_err={row['max_abs_err']} "
               f"kernel_ms={row['ms']} graph_ms={row['graph_ms']} plain_ms={row['plain_ms']} "
               f"library_ms={row['library_ms']} bound_ms={row['bound_ms']} ({row['bound_by']})",
@@ -2145,6 +2201,30 @@ def logged_run(torch, kernels: bool, feed=None, extra=(), arch="olmo-1b", steps=
     return streams, rounds, m
 
 
+def float32_distance(torch, arch, feed, steps=PROBE_STEPS) -> dict:
+    """``arch`` teacher-forced on ``feed``'s tokens over its first
+    ``steps`` engine steps on both bf16 paths and served in float32 (the
+    composed path, the same bf16 weights widened): each bf16 path's
+    largest |logit difference| to float32, and the two paths' to each
+    other.  The kernel path no farther from float32 than the composed
+    path says its distance to the composed path is rounding."""
+    rounds = {name: logged_run(torch, kernels, feed=feed, arch=arch, steps=steps, f32=f32)[1]
+              for name, kernels, f32 in (("float32", False, True), ("composed", False, False),
+                                         ("kernel", True, False))}
+    n = len(rounds["float32"])
+    out = {}
+    for a, b in (("float32", "composed"), ("float32", "kernel"), ("composed", "kernel")):
+        d = sorted(compare_rounds(torch, rounds[a], rounds[b][:n])[0].values())
+        out[f"{b} vs {a}"] = d[-1]
+        print(f"[forced] {arch} ({model_cfg(arch).n_layers} layers), over the first {steps} "
+              f"engine step ({len(d)} (request, step) logit vectors): the {b} path against the "
+              f"{a} run on the same tokens: max |diff| {d[-1]}, median {statistics.median(d)}, "
+              f"p99 {d[int(0.99 * (len(d) - 1))]}", flush=True)
+    del rounds
+    free(torch)
+    return out
+
+
 def tie_streams(served, want, checked):
     """A timed run that served ``served`` scored ``want``'s prefix up to
     its first divergence from it, so up to and including that token its
@@ -2216,13 +2296,15 @@ def fault_phase(torch, want_streams, want_rounds, arch="olmo-1b", bar=LOGIT_ATOL
     checked run.  A ring config's attention masks by the ring's slot
     positions, not by ``kv_valid_len``: its probe makes them linear.  An
     int8 cache's probes break what the int8 cache adds: one layer's
-    exponents, and the payloads' sign."""
+    exponents, and the payloads' sign.  A vlm adds one in its prefill:
+    the patch embeddings dropped, so the first ``vision_patches`` slots
+    keep their token embeddings."""
     from repro_torch.kernels import common, dispatch, ref
     from repro_torch.models import transformer
 
     cfg = model_cfg(arch)
     qkv, attn = dispatch.decode_qkv, dispatch.decode_attention
-    ring_positions = transformer.ring_positions
+    ring_positions, embed = transformer.ring_positions, transformer._embed
     no_window = common.device_int(ref.BIG_WINDOW, "window", torch.device("cuda", 0))
 
     def rope_late(cfg, p, x, positions, *, rope):
@@ -2233,6 +2315,9 @@ def fault_phase(torch, want_streams, want_rounds, arch="olmo-1b", bar=LOGIT_ATOL
 
     def windows_dropped(cfg, p, q, k, v, *, window_arr, **kw):
         return attn(cfg, p, q, k, v, window_arr=no_window, **kw)
+
+    def patches_dropped(cfg, params, tokens, patch_embeds=None):
+        return embed(cfg, params, tokens)
 
     def linear_positions(pos, slots):
         s = torch.arange(slots, dtype=torch.int32, device=pos.device)
@@ -2268,6 +2353,9 @@ def fault_phase(torch, want_streams, want_rounds, arch="olmo-1b", bar=LOGIT_ATOL
         if cfg.window:
             probes.append(("every layer's window BIG_WINDOW", dispatch, "decode_attention",
                            windows_dropped))
+        if cfg.family == "vlm":
+            probes.append((f"the patches dropped (slots 0-{cfg.vision_patches - 1} keep their "
+                           f"token embeddings)", transformer, "_embed", patches_dropped))
     pre = "" if arch == "olmo-1b" else f"{arch} "
     for name, module, attr, fn in probes:
         calls[0] = 0
@@ -2277,7 +2365,7 @@ def fault_phase(torch, want_streams, want_rounds, arch="olmo-1b", bar=LOGIT_ATOL
                                       steps=PROBE_STEPS)
         finally:
             dispatch.decode_qkv, dispatch.decode_attention = qkv, attn
-            transformer.ring_positions = ring_positions
+            transformer.ring_positions, transformer._embed = ring_positions, embed
         diffs, flips = compare_rounds(torch, want_rounds[:len(rounds)], rounds)
         d = sorted(diffs.values())
         print(f"[fault] {pre}{name}: max |diff| {d[-1]}, median {statistics.median(d)}, "
@@ -2290,13 +2378,19 @@ def fault_phase(torch, want_streams, want_rounds, arch="olmo-1b", bar=LOGIT_ATOL
 def family_phase(torch, rates, arch: str) -> dict:
     """``[serve] <arch>``: a dense decoder of step 9 at its published
     widths with seeded random bf16 weights (gemma3-12b's depth cut,
-    ``GEMMA_LAYERS``), served with the olmo-1b phase's requests (gemma3-12b's prompts 1536 tokens long,
-    ``FAMILY_PROMPT_LEN``): both paths eager and captured
-    (``serve_runs``), a profiled captured block, the kernel path
-    teacher-forced to the composed path within the arch's bar, and the
-    fault probes above it (a windowed model's includes every window
-    dropped).  Returns the captured kernel run's launches."""
+    ``GEMMA_LAYERS``), served with the olmo-1b phase's requests
+    (gemma3-12b's prompts 1536 tokens long, ``FAMILY_PROMPT_LEN``; a
+    vlm's first 256 slots the zero patches): both paths eager and
+    captured (``serve_runs``), a profiled captured block, the kernel path
+    teacher-forced to the composed path within the arch's bar (for
+    internvl2-26b each path's float32 distance at a depth its float32
+    weights fit, ``FAMILY_F32_DEPTH``), and the fault probes above it (a
+    windowed model's includes every window dropped, a vlm's the patches
+    dropped).  Prints the round, tokens/s, TTFT, busy share, the
+    attention's and the unembedding's in-situ times, peak memory and the
+    card.  Returns the captured kernel run's launches."""
     t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
     bar = FAMILY_LOGIT_ATOL[arch]
     runs = serve_runs(torch, rates, arch)
     walls = [time.perf_counter()]
@@ -2304,19 +2398,38 @@ def family_phase(torch, rates, arch: str) -> dict:
     walls.append(time.perf_counter())
     want_streams, want_rounds = forced_phase(torch, runs, arch, bar)[:2]
     walls.append(time.perf_counter())
+    if arch in FAMILY_F32_DEPTH:
+        # each bf16 path's distance to float32 where float32 weights fit
+        dist = float32_distance(torch, FAMILY_F32_DEPTH[arch], want_streams)
+        near = dist["kernel vs float32"] <= dist["composed vs float32"]
+        print(f"[forced] {arch}: at {model_cfg(FAMILY_F32_DEPTH[arch]).n_layers} layers the kernel "
+              f"path is {'no farther from' if near else 'FARTHER from'} float32 than the composed "
+              f"path ({dist['kernel vs float32']} against {dist['composed vs float32']})",
+              flush=True)
+        assert max(dist.values()) <= bar, dist
+        walls.append(time.perf_counter())
     fault_phase(torch, want_streams, want_rounds, arch, bar)
     del want_rounds
     free(torch)
     walls.append(time.perf_counter())
-    print(f"[serve] {arch}: wall s of the timed runs, profile, teacher-forced runs, probes: "
+    print(f"[serve] {arch}: wall s of the timed runs, profile, teacher-forced runs, "
+          f"{'float32 distance, ' if arch in FAMILY_F32_DEPTH else ''}probes: "
           f"{[b - a for a, b in zip([t0] + walls, walls)]}", flush=True)
-    k = runs["kernels"]
-    print(f"[serve] {arch} ({model_cfg(arch).n_layers} layers): captured kernel path "
+    k, cfg = runs["kernels"], model_cfg(arch)
+    attn_us = prof["kernel_ms"].get("attn_kernel", 0.0) * 1e3 / cfg.n_layers
+    # the decode block's one product outside the port's kernels is the
+    # unembedding, a cuBLAS GEMM
+    gemms = {n: ms for n, ms in prof["kernel_ms"].items()
+             if CUBLAS_OP.search(n) and n not in PORT_KERNELS}
+    print(f"[serve] {arch} ({cfg.n_layers} layers): captured kernel path "
           f"{k['round_s'] * 1e3} ms a round, "
           f"{k['tokens_per_s']} tokens/s, mean TTFT {k['ttft_s']} s, device busy share of a "
           f"captured block {prof['busy_ms'] / prof['window_ms']} (composed path captured "
-          f"{runs['composed']['round_s'] * 1e3} ms); teacher-forced bar {bar}; phase wall "
-          f"{time.perf_counter() - t0} s", flush=True)
+          f"{runs['composed']['round_s'] * 1e3} ms); attention in situ {attn_us} us a layer "
+          f"(attn_kernel<{cfg.n_heads // cfg.n_kv_heads}, {cfg.head_dim}>); unembedding in situ "
+          f"{sum(gemms.values())} ms a round ({sorted(gemms)}); peak memory "
+          f"{torch.cuda.max_memory_allocated()} B; teacher-forced bar {bar}; phase wall "
+          f"{time.perf_counter() - t0} s; {card_line()}", flush=True)
     return k["launches"]
 
 
@@ -2533,6 +2646,12 @@ def kvq_phase(torch, rates) -> dict:
           f" ms a round; teacher-forced bar {bar}; phase wall {time.perf_counter() - t0} s; "
           f"{card_line()}", flush=True)
     return k["launches"]
+
+
+# cuBLAS's GEMM and GEMV kernels by name (sm90_xmma_gemm_*, nvjet_*,
+# cutlass::Kernel2<...>, gemv2T_kernel...), the port's own left out
+CUBLAS_OP = re.compile(r"gemm|gemv|nvjet|cutlass|xmma|Kernel2|splitK", re.I)
+PORT_KERNELS = ("qkv_gemv_kernel", "gemv_kernel", "attn_kernel")
 
 
 def kernel_name(name: str) -> str:
@@ -2917,6 +3036,12 @@ def main() -> int:
     family_launches = {arch: family_phase(torch, rates, arch) for arch in FAMILY_LOGIT_ATOL}
     rows["fused_decode_attention"]["head_dim_256"]["launches"] = \
         family_launches["gemma3-12b"]["fused_decode_attention"]
+    # internvl2-26b's launches: its QKV and MLP rows, and row 2a (G = 6, hd
+    # 128, d 6144: its attention's shape and nemotron-4-15b's)
+    for kernel in ("fused_qkv", "fused_mlp"):
+        rows[kernel]["vlm"]["launches"] = family_launches[VLM][kernel]
+    rows["fused_decode_attention"]["wide_groups"][6]["launches"] = {
+        a: family_launches[a]["fused_decode_attention"] for a in ("nemotron-4-15b", VLM)}
     ring_launches = ring_phase(torch, rates)
     for kernel in ("fused_qkv", "fused_decode_attention", "fused_mlp"):
         rows[kernel]["ring"]["launches"] = ring_launches[kernel]

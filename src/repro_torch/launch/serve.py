@@ -1,5 +1,9 @@
 """Serving launcher of the port: batched requests against a dense decoder
-(olmo-1b, starcoder2-15b or nemotron-4-15b).
+(olmo-1b, starcoder2-15b, nemotron-4-15b, gemma3-12b) or internvl2-26b,
+the vlm family, whose prefill writes the (stub) vision tower's zero
+patch embeddings over each prompt's first 256 slots, so at full size
+its cache (``--prompt-len`` + ``--max-new`` + 8 slots) must hold 256
+(the engine refuses a shorter one), e.g. ``--prompt-len 512``.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b \
         [--smoke] [--decode-kernels] [--aimc] [--stream] [--multi-pu K] \

@@ -1,4 +1,6 @@
-"""Uniform model API (counterpart of ``repro.models.api``), family ``"lm"``.
+"""Uniform model API (counterpart of ``repro.models.api``), families
+``"lm"`` and ``"vlm"`` (the same decoder; a vlm's prefill batch carries
+``patch_embeds``).
 
 ``get_api(cfg)`` returns a :class:`ModelAPI` whose members share the
 reference's signatures, plus the layer-sliced decode surface
@@ -33,7 +35,8 @@ class ModelAPI:
 
 def _tf_prefill(cfg, params, batch):
     return transformer.prefill(
-        cfg, params, batch["tokens"], lengths=batch.get("lengths")
+        cfg, params, batch["tokens"], batch.get("patch_embeds"),
+        lengths=batch.get("lengths"),
     )
 
 
@@ -55,4 +58,4 @@ _TRANSFORMER_API = ModelAPI(
 
 def get_api(cfg: ModelConfig) -> ModelAPI:
     transformer.check_supported(cfg)
-    return _TRANSFORMER_API
+    return dataclasses.replace(_TRANSFORMER_API, family=cfg.family)

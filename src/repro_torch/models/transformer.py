@@ -26,6 +26,11 @@ path hands the int8 cache and its exponents to the attention kernel,
 which dequantizes as it loads.  Prefill attends the unquantized k, v and
 returns the quantized cache.
 
+A vlm (internvl2-26b) is this decoder with its vision tower's patch
+embeddings written over the first ``vision_patches`` token slots in
+prefill (:func:`_embed`); the tower is a stub, as in the reference, so
+callers pass the embeddings (the serving engine passes zeros).
+
 Unlike the reference, the decode path updates the KV cache *in place*:
 the cache tensors given to :func:`decode_step` / :func:`decode_stage` are
 written and returned, so the serving engine's preallocated buffers are
@@ -51,7 +56,6 @@ from repro_torch.models.common import apply_norm, apply_rope, mlp_is_gated
 # (condition, what, ROADMAP queue 1 step that ports it)
 _LATER = (
     (lambda c: c.family in ("ssm", "hybrid", "encdec"), "the {family} family", 12),
-    (lambda c: c.family == "vlm", "vlm patch embeddings", 9),
     (lambda c: c.is_moe, "mixture-of-experts MLPs", 12),
     (lambda c: c.pos_embed != "rope", "{pos_embed} positions", 9),
 )
@@ -306,23 +310,38 @@ def _layer_fn(
     return x, new_cache, ((k, v) if return_kv else None)
 
 
-def _embed(cfg, params, tokens):
-    return params["embed"].to(_dtype(cfg))[tokens]
+def _embed(cfg, params, tokens, patch_embeds=None):
+    """Token embeddings; a vlm's ``patch_embeds`` (B, P, D), cast to the
+    embedding's dtype, overwrite token slots ``0 .. P-1`` (the reference's
+    ``dynamic_update_slice`` at the origin, which refuses a sequence
+    shorter than the patches, as this does)."""
+    x = params["embed"].to(_dtype(cfg))[tokens]
+    if cfg.family == "vlm" and patch_embeds is not None:
+        p = patch_embeds.shape[1]
+        if p > x.shape[1] or patch_embeds.shape[0] != x.shape[0]:
+            raise ValueError(
+                f"patch embeddings {tuple(patch_embeds.shape)} do not fit the token "
+                f"embeddings {tuple(x.shape)}: a sequence holds its {p} patches in its "
+                f"first {p} slots")
+        x[:, :p] = patch_embeds.to(x.dtype)
+    return x
 
 
 def forward_hidden(
     cfg: ModelConfig,
     params: dict,
     tokens: torch.Tensor,            # (B, S)
+    patch_embeds: Optional[torch.Tensor] = None,    # (B, P, D), a vlm's
     return_cache: bool = False,
 ):
     """Full-sequence pass -> (hidden (B,S,D), optional kv cache (L,B,S,KV,hd) x2;
-    with ``kv_quant`` the int8 payloads and their (L,B,S,KV) exponents)."""
+    with ``kv_quant`` the int8 payloads and their (L,B,S,KV) exponents).
+    A vlm's ``patch_embeds`` take the first P token slots (:func:`_embed`)."""
     check_supported(cfg)
     b, s = tokens.shape
     dev = tokens.device
     positions = torch.arange(s, dtype=torch.int32, device=dev)[None].expand(b, s)
-    x = _embed(cfg, params, tokens)
+    x = _embed(cfg, params, tokens, patch_embeds)
     windows = layer_windows(cfg, dev)
     ks, vs = [], []
     for i in range(cfg.n_layers):
@@ -359,11 +378,13 @@ def prefill(
     cfg: ModelConfig,
     params: dict,
     tokens: torch.Tensor,
+    patch_embeds: Optional[torch.Tensor] = None,
     lengths: Optional[torch.Tensor] = None,
 ):
     """Full-context pass -> (last-token logits (B,V), kv cache (L,B,S,KV,hd) x2,
     or with ``kv_quant`` the four leaves of the int8 cache; the attention
-    inside runs on the unquantized k, v, as the reference's does).
+    inside runs on the unquantized k, v, as the reference's does).  A
+    vlm's ``patch_embeds`` (B, P, D) overwrite the first P token slots.
 
     ``lengths`` (B,) enables bucketed batched prefill: rows are prompts
     right-padded to a shared bucket length, and logits are gathered at
@@ -378,7 +399,7 @@ def prefill(
     if ring_applies(cfg) and lengths is not None:
         raise ValueError("bucketed prefill (lengths) is unsupported for kv_ring configs: "
                          "the ring re-layout is a whole-sequence shift")
-    hidden, cache = forward_hidden(cfg, params, tokens, return_cache=True)
+    hidden, cache = forward_hidden(cfg, params, tokens, patch_embeds, return_cache=True)
     s = tokens.shape[1]
     if ring_applies(cfg) and s > cfg.window:
         n = cfg.window

@@ -7,8 +7,9 @@ Request flow (continuous batching, decode-centric):
     engine round: (AIMC noise refresh,) admit waiting requests into free
                   slots (bucketed batched prefill, one call per length
                   bucket; a ring KV cache, one call per exact prompt
-                  length), then run a block of decode rounds entirely on
-                  the device.
+                  length; a vlm's prefill gets zero patch embeddings
+                  over its first slots), then run a block of decode
+                  rounds entirely on the device.
 
 The JAX engine runs a decode block as one jitted ``lax.scan`` with the
 cache and state donated.  Here a block of ``R`` rounds updates
@@ -277,6 +278,15 @@ class ServingEngine:
             )
             if b <= serve_cfg.max_len
         ]
+        if cfg.family == "vlm":
+            # a prefill writes the vision patches over its first slots, so a
+            # bucket shorter than the patches cannot hold them (the
+            # reference's prefill refuses such a sequence too)
+            if serve_cfg.max_len < cfg.vision_patches:
+                raise ValueError(
+                    f"{cfg.name}: max_len {serve_cfg.max_len} cannot hold the "
+                    f"{cfg.vision_patches} vision patches a prompt begins with")
+            ladder = [b for b in ladder if b >= cfg.vision_patches]
         self._buckets = tuple(sorted(set(ladder + [serve_cfg.max_len])))
 
         B, dev = serve_cfg.max_batch, self.device
@@ -603,7 +613,7 @@ class ServingEngine:
         ``slots`` (n,) names the lanes of the first n rows; the remaining
         rows pad the batch to a power of two and are never written."""
         n = slots.shape[0]
-        batch = {"tokens": tokens, "lengths": lengths if self.bucketed_prefill else None}
+        batch = self._prefill_batch(tokens, lengths if self.bucketed_prefill else None)
         logits, one_cache = self.api.prefill(self.cfg, params, batch)
         tok = self._sample_device(logits)
         scatter_cache_lanes(cache, one_cache, slots)
@@ -617,6 +627,19 @@ class ServingEngine:
         state["out_buf"][slots, 0] = tok[:n]
         state["out_len"][slots] = 1
         return tok, done0
+
+    def _prefill_batch(self, tokens, lengths=None) -> Dict[str, Any]:
+        """Model-API prefill batch for ``tokens``, with the stub modality
+        input a vlm expects: zero patch embeddings (rows, vision_patches,
+        d_model) in the compute dtype on the engine's device, as the
+        reference's engine feeds them."""
+        batch = {"tokens": tokens, "lengths": lengths}
+        if self.cfg.family == "vlm":
+            dt = torch.bfloat16 if self.cfg.dtype == "bfloat16" else torch.float32
+            batch["patch_embeds"] = torch.zeros(
+                (tokens.shape[0], self.cfg.vision_patches, self.cfg.d_model),
+                dtype=dt, device=tokens.device)
+        return batch
 
     def _bucket_for(self, n: int) -> int:
         for b in self._buckets:

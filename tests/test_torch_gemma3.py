@@ -128,7 +128,8 @@ def test_layer_windows_equal_the_references(case):
 def test_flags_of_later_step_9_parts_still_raise():
     base = get_config(ARCH)
     for change in ({"kv_ring": True, "kv_quant": True, "pos_embed": "learned"},
-                   {"kv_quant": True, "pos_embed": "learned"}, {"family": "vlm"},
+                   {"kv_quant": True, "pos_embed": "learned"},
+                   {"family": "vlm", "pos_embed": "learned"},
                    {"pos_embed": "learned"}):
         with pytest.raises(NotImplementedError, match="step 9"):
             model_api.get_api(dataclasses.replace(base, **change))

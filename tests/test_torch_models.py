@@ -209,7 +209,8 @@ def test_init_params_shapes_match_jax():
     [({"kv_quant": True, "pos_embed": "learned"}, 9),
      ({"kv_ring": True, "window": 16, "pos_embed": "learned"}, 9),
      ({"window": 16, "kv_quant": True, "pos_embed": "learned"}, 9),
-     ({"n_experts": 4, "top_k": 2}, 12), ({"family": "ssm"}, 12), ({"family": "vlm"}, 9),
+     ({"n_experts": 4, "top_k": 2}, 12), ({"family": "ssm"}, 12),
+     ({"family": "vlm", "pos_embed": "learned"}, 9),
      ({"pos_embed": "learned"}, 9)],
 )
 def test_flags_outside_the_slice_raise(change, step):

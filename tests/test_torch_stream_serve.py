@@ -4,11 +4,13 @@ planner's examples, against the JAX package.
 ``ServeConfig(stream_pu=...)`` on smoke olmo-1b: the engine's ``stream_*``
 stats equal the JAX engine's under the same profile, and planning changes
 no served token.  ``launch.serve --stream --device cpu`` plans under the
-H100 host-offload profile.  The families the port does not serve yet fail
-at once, naming their ROADMAP step (staged multi-PU decode, two or more
-``stream_pus``, is ``tests/test_torch_stage_decode.py``'s).  ``examples/resnet_paper.py`` steps 3-4 give the
+H100 host-offload profile.  The families the port does not serve yet (and
+internvl2-26b with learned positions) fail at once, naming their ROADMAP
+step (staged multi-PU decode, two or more ``stream_pus``, is
+``tests/test_torch_stage_decode.py``'s).  ``examples/resnet_paper.py`` steps 3-4 give the
 JAX example's schedule and Table I numbers.
 """
+import dataclasses
 import json
 
 import numpy as np
@@ -119,7 +121,13 @@ def test_launcher_stream_plans_with_the_h100_profile(capsys):
 
 @pytest.mark.parametrize("arch, step", [("mixtral-8x7b", 12), ("mamba2-780m", 12),
                                         ("internvl2-26b", 9)])
-def test_unported_families_fail_at_once(arch, step):
+def test_unported_families_fail_at_once(arch, step, monkeypatch):
+    if arch == "internvl2-26b":
+        # the vlm family serves now; launched with learned positions, a
+        # flag of step 9 still to port, it fails before the stream is planned
+        registry = serve.get_config
+        monkeypatch.setattr(serve, "get_config",
+                            lambda a: dataclasses.replace(registry(a), pos_embed="learned"))
     with pytest.raises(NotImplementedError, match=f"step {step}"):
         serve.main(["--arch", arch, "--smoke", "--device", "cpu", "--stream"])
 

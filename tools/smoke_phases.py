@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Run some of ``chip_smoke.py``'s phases alone on a CUDA card.
 
-    python3 tools/smoke_phases.py [int8] [multi] [kvq] [per-stage]
+    python3 tools/smoke_phases.py [int8] [multi] [kvq] [vlm] [per-stage]
 
 Builds the kernels, prints the card's name and power limit, then runs the
-named phases (all four when none is named) with ``chip_smoke.py``'s own
+named phases (all five when none is named) with ``chip_smoke.py``'s own
 functions and checks:
 
 - ``int8``: the kernel phase's rows 2e-2g, the attention's int8-K/V
@@ -13,6 +13,9 @@ functions and checks:
 - ``multi``: olmo-1b's timed serve runs, then ``[multi-pu] serve``
   ((a), (b), (b2) and, with two or more cards, (c));
 - ``kvq``: ``[serve] olmo-1b-kvq``;
+- ``vlm``: internvl2-26b's kernel rows (the QKV GEMV and the SwiGLU MLP
+  at its widths, the unembedding timed; ``chip_smoke.vlm_projections``),
+  then ``[serve] internvl2-26b`` at all 48 layers;
 - ``per-stage``: ``[multi-pu] serve`` (c) alone, olmo-1b's two stages on
   cards of their own, held to a single-PU captured kernel run (needs two
   or more cards).
@@ -29,7 +32,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(ROOT), str(ROOT / "src")]
 
-PHASES = ("int8", "multi", "kvq", "per-stage")
+PHASES = ("int8", "multi", "kvq", "vlm", "per-stage")
 
 
 def main(argv) -> int:
@@ -50,7 +53,7 @@ def main(argv) -> int:
     rates = cs.card_rates(torch.cuda.get_device_name(0))
     for phase in phases:
         t0 = time.perf_counter()
-        if phase == "int8":
+        if phase in ("int8", "vlm"):
             g = torch.Generator(device="cuda").manual_seed(0)
 
             def rnd(*shape, scale=1.0):
@@ -61,7 +64,14 @@ def main(argv) -> int:
                                            msg=lambda m: f"{what}: {m}")
                 return (got.float() - want.float()).abs().max().item()
 
-            cs.int8_attention(torch, cs.Timer(torch, cs.TIMED_CALLS), rates, rnd, close)
+            timer = cs.Timer(torch, cs.TIMED_CALLS)
+            if phase == "int8":
+                cs.int8_attention(torch, timer, rates, rnd, close)
+            else:
+                cs.vlm_projections(torch, timer, rates, rnd, close)
+                del timer
+                cs.free(torch)
+                cs.family_phase(torch, rates, cs.VLM)
         elif phase == "multi":
             cs.multi_pu_serve_phase(torch, cs.serve_runs(torch, rates))
         elif phase == "kvq":
